@@ -1,0 +1,157 @@
+"""The port's serving chain reproduces the JAX goldens from bridged weights.
+
+The model is the goldens' (tests/test_goldens.py: start_neurons=4,
+pool_layers=3, 64x96, ``PRNGKey(1234)``); its Flax variables cross into
+the port through ``state_dict_from_flax``. Every integer key of
+``pipeline_golden.json`` (exact ties), ``fused_fast_golden.json`` (fast
+ties, BN-folded forward) and ``streaming_golden.json`` (10 B-scans, batch
+4) must match exactly; ``probs_mean`` within the goldens' own 2e-6.
+"""
+
+import functools
+import json
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from oct_image_segmentation_models_tpu.models import get_model_class as jax_model_class
+from oct_image_segmentation_models_torch.common.model_io import (
+    LoadedModel,
+    state_dict_from_flax,
+)
+from oct_image_segmentation_models_torch.models import get_model_class
+from oct_image_segmentation_models_torch.ops import boundary as tb
+from oct_image_segmentation_models_torch.ops.inference import (
+    make_fused_pipeline,
+    select_optimized_forward,
+)
+from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
+
+from synth import make_layered_sample
+
+GOLDEN_DIR = Path(__file__).parent / "goldens"
+H, W, C = 64, 96, 4
+
+
+def _golden(name):
+    return json.loads((GOLDEN_DIR / name).read_text())
+
+
+def _images(n, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([make_layered_sample(rng, H, W, C)[0] for _ in range(n)])[
+        ..., None
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _port_model():
+    """The goldens' JAX U-Net, bridged into a port module on the CPU."""
+    jax_container = jax_model_class("unet")(
+        input_channels=1,
+        num_classes=C,
+        image_height=H,
+        image_width=W,
+        start_neurons=4,
+        pool_layers=3,
+    )
+    jax_module = jax_container.build_model()
+    # jit gives the same variables as the goldens' eager init, faster.
+    variables = jax.jit(
+        lambda key: jax_module.init(
+            key, np.zeros((1, H, W, 1), np.float32), training=False
+        )
+    )(jax.random.PRNGKey(1234))
+    config = jax_container.get_config()
+    container = get_model_class("unet")(**config)
+    module = container.build_model(device="cpu")
+    module.load_state_dict(
+        state_dict_from_flax(jax.tree_util.tree_map(np.asarray, dict(variables)))
+    )
+    return container, module
+
+
+def test_pipeline_golden_exact_and_fast_ties():
+    golden = _golden("pipeline_golden.json")
+    container, module = _port_model()
+    forward, kind = select_optimized_forward(module, optimize=False)
+    assert kind == "parity"
+    images = _images(4, 42)
+    got = {}
+    for tie, key in (("exact", "delineations"), ("fast", "delineations_fast")):
+        pipeline = make_fused_pipeline(
+            forward,
+            container.get_preprocess_input_fn(),
+            minpath_tie_parity=tie,
+            device="cpu",
+        )
+        labels, maps, rows = pipeline(images)
+        assert rows.dtype == torch.uint16 and labels.dtype == torch.uint8
+        got[key] = rows.numpy().tolist()
+    got["labels_sum"] = int(labels.to(torch.int64).sum())
+    got["maps_nonzero"] = int((maps > 0).sum())
+    got["maps_sum"] = int(maps.to(torch.int64).sum())
+    masks = tb.create_area_mask(torch.tensor(got["delineations"], dtype=torch.float32), H)
+    got["masks_sum"] = int(masks.to(torch.int64).sum())
+    with torch.no_grad():
+        probs = forward(torch.from_numpy(images).to(torch.float32) / 255.0)
+    assert abs(round(float(probs.mean()), 6) - golden["probs_mean"]) < 2e-6
+    for key, value in got.items():
+        assert value == golden[key], key
+    assert set(got) | {"probs_mean"} == set(golden)
+
+
+def test_fused_fast_golden_folded_forward():
+    golden = _golden("fused_fast_golden.json")
+    container, module = _port_model()
+    forward, kind = select_optimized_forward(module)
+    assert kind == "folded"
+    pipeline = make_fused_pipeline(
+        forward,
+        container.get_preprocess_input_fn(),
+        minpath_tie_parity="fast",
+        device="cpu",
+    )
+    labels, maps, rows = pipeline(_images(4, 42))
+    assert int(labels.to(torch.int64).sum()) == golden["labels_sum"]
+    assert int(maps.to(torch.int64).sum()) == golden["maps_sum"]
+    assert rows.numpy().tolist() == golden["delineations"]
+
+
+def test_streaming_golden():
+    golden = _golden("streaming_golden.json")
+    container, module = _port_model()
+    config = container.get_config()
+    seg = VolumeSegmenter(
+        LoadedModel("unet", module, config), config, batch_size=4, device="cpu"
+    )
+    labels, rows = seg.segment_volume(_images(10, 3))  # 2 full + remainder
+    assert labels.shape == (10, H, W) and labels.dtype == np.uint8
+    assert rows.shape == (10, C - 1, W) and rows.dtype == np.uint16
+    assert int(labels.astype(np.int64).sum()) == golden["labels_sum"]
+    assert rows.tolist() == golden["rows"]
+
+
+def test_streaming_rejects_bad_input():
+    container, module = _port_model()
+    config = container.get_config()
+    loaded = LoadedModel("unet", module, config)
+    seg = VolumeSegmenter(loaded, config, batch_size=4, device="cpu")
+    with pytest.raises(ValueError, match="at least one"):
+        seg.segment_volume(np.zeros((0, H, W, 1), np.uint8))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        seg.segment_volume(np.zeros((2, H + 4, W, 1), np.uint8))
+    with pytest.raises(NotImplementedError, match="A9"):
+        VolumeSegmenter(loaded, config, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="batch_size"):
+        VolumeSegmenter(loaded, config, batch_size=0, device="cpu")
+    with pytest.raises(ValueError, match="float32"):
+        VolumeSegmenter(loaded, config, compute_dtype="bfloat16", device="cpu")
+    # Without graph search there are labels and no rows.
+    labels, rows = VolumeSegmenter(
+        loaded, config, batch_size=4, with_graph_search=False, device="cpu"
+    ).segment_volume(_images(3, 5))
+    assert labels.shape == (3, H, W) and rows is None
