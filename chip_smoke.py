@@ -9,20 +9,30 @@ Phases, each of which raises on failure:
    and the build of every CUDA kernel in
    ``oct_image_segmentation_models_torch/csrc`` (one ``nvcc`` per source,
    all started together).
-2. Kernel parity: the CUDA min-path kernel against its plain PyTorch
-   version on the same CUDA tensors, bit for bit, in both tie modes, at
-   the flagship shape (24 maps x 1024 columns x 512 rows) and at odd ones.
-3. The slice at full width: ``VolumeSegmenter`` with the bench's U-Net
-   (start_neurons=32, pool_layers=4, conv_layers=2, 4 classes, 512x1024
-   B-scans, batch 8, random weights from a seeded ``torch.Generator``)
-   segments a 20-B-scan volume with fast ties and one batch with exact
-   ties. The kernel's launch counter must have moved; the rows must equal
-   the plain min-path run on maps rebuilt from the returned labels; one
-   B-scan's probabilities on the card must agree with the CPU float32
-   forward.
-4. Times, with CUDA events (median of several runs after warm-up): the
-   pipeline per batch, its stages, the kernel per call in each tie mode,
-   the plain version, and the kernel's bound.
+2. Kernel parity, each kernel against its plain PyTorch version on the
+   same CUDA tensors:
+   - ``minpath_dp`` (B1), bit for bit, both tie modes, at the flagship
+     shape (24 maps x 1024 columns x 512 rows) and at odd ones;
+   - ``minpath_dp_s2d`` (B2) on s2d maps, bit for bit against its plain
+     version and against B1 on the transposed maps, both tie modes, at
+     (8, 3, 256, 512, 4) and at odd ones;
+   - ``s2d_enc_pair`` (B3) within ``PAIR_ATOL`` at the flagship level-1
+     shape and two small ones; ``pooled`` exactly the phase max of ``y2``.
+3. The paths at full width, on the bench's U-Net (start_neurons=32,
+   pool_layers=4, conv_layers=2, 4 classes, 512x1024 B-scans, batch 8,
+   random weights from a seeded ``torch.Generator``), each driven with the
+   launch counts set to 0 just before it and read just after:
+   - the s2d serving path (the main path): ``VolumeSegmenter`` with its
+     defaults segments a 20-B-scan volume with fast ties and one batch with
+     exact ties through B2; its rows must equal the plain min-path on maps
+     rebuilt from the returned labels, and one B-scan's labels must agree
+     with the CPU s2d forward;
+   - the BN-folded path of the first slice, through B1, checked the same
+     way, with one B-scan's probabilities against the CPU forward;
+   - the s2d forward with fused encoder pairs, one batch through B3.
+4. Times, with CUDA events (median of several runs after warm-up): both
+   pipelines per batch and their stages, each kernel per call beside its
+   plain version, its yardstick and its bound.
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -54,6 +64,13 @@ FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores (TF32 is off)
 # The card's float32 forward (cuDNN, TF32 off) against the CPU's: both
 # float32, summed in another order over ~20 convs of depth up to 4608.
 PROB_ATOL = 1e-4
+# The encoder-pair kernel against the unfused cuDNN chain: float32 sums of
+# depth up to 4 * 4C = 1024 at O(1) activations, in another order (the JAX
+# kernel test's figure).
+PAIR_ATOL = 1e-4
+# Argmax agreement between two float32 forwards that differ only in
+# summation order: a near-zero-margin pixel can flip.
+MIN_AGREEMENT = 0.999
 
 
 def card_line() -> str:
@@ -182,20 +199,130 @@ def phase_kernel_parity(rng) -> dict:
     return {"max_abs_err": max_err, "cases": len(cases) * 2}
 
 
-def phase_slice(rng, seed: int) -> dict:
-    """The serving path at full width, through the kernel."""
-    from oct_image_segmentation_models_torch._device import float32_precision
-    from oct_image_segmentation_models_torch.common.model_io import LoadedModel
-    from oct_image_segmentation_models_torch.models import get_model_class
-    from oct_image_segmentation_models_torch.models.unet import fold_batchnorm
+def image_to_s2d(maps_img: torch.Tensor) -> torch.Tensor:
+    """Image maps ``(B, M, H, W)`` -> s2d maps ``(B, M, H/2, W/2, 4)`` with
+    channels ``(q_h, q_w)``."""
+    b, m, h, w = maps_img.shape
+    return (
+        maps_img.reshape(b, m, h // 2, 2, w // 2, 2)
+        .permute(0, 1, 2, 4, 3, 5)
+        .reshape(b, m, h // 2, w // 2, 4)
+        .contiguous()
+    )
+
+
+def phase_s2d_kernel_parity(rng) -> dict:
+    """The s2d min-path kernel against its plain version and against the
+    (W, H) kernel on the transposed maps, bit for bit."""
     from oct_image_segmentation_models_torch.ops.boundary import (
-        boundary_maps_from_labels,
+        s2d_maps_to_transposed,
     )
-    from oct_image_segmentation_models_torch.ops.minpath import delineate_reference
-    from oct_image_segmentation_models_torch.ops.minpath_cuda import delineate_cuda
-    from oct_image_segmentation_models_torch.prediction.streaming import (
-        VolumeSegmenter,
+    from oct_image_segmentation_models_torch.ops.minpath import (
+        delineate_s2d_reference,
     )
+    from oct_image_segmentation_models_torch.ops.minpath_cuda import (
+        delineate_cuda,
+        delineate_cuda_s2d,
+    )
+
+    m = NUM_CLASSES - 1
+    cases = [(family, BATCH, m, W, H, 1, 2) for family in ("ridge", "plateau", "sparse")]
+    cases += [
+        ("plateau", 2, 2, 256, 500, 1, 2),  # Hb = 250, not a power of two
+        ("ridge", 2, 3, 128, 64, 2, 4),
+        ("plateau", 2, 3, 128, 64, 2, 3),
+        ("ridge", 1, 1, W, H, 1, 2),
+        ("sparse", 25, 1, 128, 64, 1, 2),
+    ]
+    max_err = 0
+    for family, b, mm, w, h, g, step in cases:
+        maps_t = torch.from_numpy(synthetic_maps(rng, family, b * mm, w, h, step)).cuda()
+        s2d = image_to_s2d(maps_t.transpose(-1, -2).reshape(b, mm, h, w))
+        for tie in ("exact", "fast"):
+            got = delineate_cuda_s2d(s2d, max_grad=g, tie_parity=tie)
+            want = delineate_s2d_reference(s2d, max_grad=g, tie_parity=tie)
+            b1 = delineate_cuda(
+                s2d_maps_to_transposed(s2d).contiguous(), max_grad=g, tie_parity=tie
+            )
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            max_err = max(max_err, err)
+            print(
+                f"s2d kernel parity {family:7s} B={b:2d} M={mm} W={w:4d} H={h:3d} "
+                f"g={g} {tie:5s}: max |diff| {err}, vs B1 "
+                f"{int((got - b1).abs().max())}"
+            )
+            if not (torch.equal(got, want) and torch.equal(got, b1)):
+                raise AssertionError(
+                    f"s2d min-path kernel disagrees: {family} B={b} M={mm} W={w} "
+                    f"H={h} g={g} {tie}, {int((got != want).sum())} rows differ "
+                    f"from the plain version, {int((got != b1).sum())} from B1"
+                )
+    return {"max_abs_err": max_err, "cases": len(cases) * 2}
+
+
+def enc_pair_inputs(rng, b, nh, nw, cin4, c4):
+    """Encoder-pair operands on the card: x ~ N(0, 1), weights scaled by
+    1/sqrt(fan_in) so the activations stay O(1)."""
+
+    def t(*shape, fan_in=1):
+        a = (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+        return torch.from_numpy(a).cuda()
+
+    return (
+        t(b, nh, nw, cin4),
+        t(2, 2, cin4, c4, fan_in=4 * cin4),
+        t(c4),
+        t(2, 2, c4, c4, fan_in=4 * c4),
+        t(c4),
+    )
+
+
+def phase_enc_pair_parity(rng) -> dict:
+    """The encoder-pair kernel against the unfused chain (cuDNN, TF32 off)."""
+    from oct_image_segmentation_models_torch._device import float32_precision
+    from oct_image_segmentation_models_torch.ops.s2d_enc_pair import (
+        fused_enc_pair_reference,
+    )
+    from oct_image_segmentation_models_torch.ops.s2d_enc_pair_cuda import (
+        fused_enc_pair_cuda,
+    )
+    from oct_image_segmentation_models_torch.ops.s2d_unet import phase_max_pool
+
+    cases = [
+        (BATCH, H // 4, W // 4, 128, 256),  # flagship level 1
+        (2, 6, 16, 128, 128),  # nh = 6: the gate's tr = 2
+        (2, 8, 12, 8, 64),  # 4Cin = 8, 4C = 64, called directly
+    ]
+    max_err = 0.0
+    flagship = None
+    for shape in cases:
+        args = enc_pair_inputs(rng, *shape)
+        y2, pooled = fused_enc_pair_cuda(*args)
+        with float32_precision():
+            want_y2, want_pool = fused_enc_pair_reference(*args)
+        torch.cuda.synchronize()
+        err = float((y2 - want_y2).abs().max())
+        pool_err = float((pooled - want_pool).abs().max())
+        exact_pool = torch.equal(pooled, phase_max_pool(y2))
+        max_err = max(max_err, err, pool_err)
+        print(
+            f"enc pair parity B={shape[0]} nh={shape[1]} nw={shape[2]} "
+            f"4Cin={shape[3]} 4C={shape[4]}: y2 max |diff| {err:.3e}, pooled "
+            f"{pool_err:.3e} (tolerance {PAIR_ATOL:g}); pooled == phase max of "
+            f"y2: {exact_pool}; |y2| max {float(want_y2.abs().max()):.3f}"
+        )
+        if not torch.isfinite(y2).all() or err > PAIR_ATOL or pool_err > PAIR_ATOL:
+            raise AssertionError(f"encoder-pair kernel off its plain version: {shape}")
+        if not exact_pool:
+            raise AssertionError("pooled is not the phase max of the kernel's y2")
+        if flagship is None:
+            flagship = args
+    return {"max_abs_err": max_err, "flagship_args": flagship}
+
+
+def build_unet(seed: int):
+    from oct_image_segmentation_models_torch.models import get_model_class
 
     container = get_model_class("unet")(
         input_channels=1,
@@ -206,56 +333,162 @@ def phase_slice(rng, seed: int) -> dict:
         pool_layers=4,
         conv_layers=2,
     )
-    config = container.get_config()
     module = container.build_model(
         generator=torch.Generator().manual_seed(seed), device="cuda"
     )
+    return container, module
+
+
+def kernel_counts() -> dict:
+    from oct_image_segmentation_models_torch.ops.minpath_cuda import (
+        delineate_cuda,
+        delineate_cuda_s2d,
+    )
+    from oct_image_segmentation_models_torch.ops.s2d_enc_pair_cuda import (
+        fused_enc_pair_cuda,
+    )
+
+    return {
+        "minpath_dp": delineate_cuda,
+        "minpath_dp_s2d": delineate_cuda_s2d,
+        "s2d_enc_pair": fused_enc_pair_cuda,
+    }
+
+
+def reset_counts() -> None:
+    for fn in kernel_counts().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_counts().items()}
+
+
+def check_rows(tie: str, labels: np.ndarray, rows: np.ndarray) -> None:
+    """Served rows against the plain min-path on maps rebuilt from the
+    served labels."""
+    from oct_image_segmentation_models_torch.ops.boundary import (
+        boundary_maps_from_labels,
+    )
+    from oct_image_segmentation_models_torch.ops.minpath import delineate_reference
+
+    n = labels.shape[0]
+    m = NUM_CLASSES - 1
+    if labels.shape != (n, H, W) or rows.shape != (n, m, W):
+        raise AssertionError(f"shapes {labels.shape}, {rows.shape}")
+    if labels.dtype != np.uint8 or rows.dtype != np.uint16:
+        raise AssertionError(f"dtypes {labels.dtype}, {rows.dtype}")
+    if labels.max() >= NUM_CLASSES or rows.max() >= H:
+        raise AssertionError("labels or rows out of range")
+    maps = boundary_maps_from_labels(torch.from_numpy(labels).cuda(), NUM_CLASSES)
+    want = delineate_reference(maps.transpose(-1, -2).contiguous(), tie_parity=tie)
+    if not np.array_equal(rows.astype(np.int64), want.cpu().numpy()):
+        raise AssertionError(f"{tie}-tie rows differ from the plain min-path")
+    print(f"rows ({tie} ties, {n} B-scans) equal the plain min-path on the returned labels")
+
+
+def run_volume(pipe, volume: np.ndarray):
+    """A volume through a pipeline in batches of ``BATCH``, as
+    ``VolumeSegmenter`` batches it -> numpy (labels, rows)."""
+    n = volume.shape[0]
+    pad = (-n) % BATCH
+    if pad:
+        volume = np.concatenate([volume, volume[-1:].repeat(pad, 0)])
+    labels, rows = [], []
+    for i in range(0, len(volume), BATCH):
+        lab, _, r = pipe(torch.from_numpy(volume[i : i + BATCH]).pin_memory())
+        labels.append(lab)
+        rows.append(r)
+    return torch.cat(labels).cpu().numpy()[:n], torch.cat(rows).cpu().numpy()[:n]
+
+
+def phase_s2d_slice(model, volume: np.ndarray) -> dict:
+    """The main path: VolumeSegmenter's defaults, the s2d forward, B2."""
+    from oct_image_segmentation_models_torch._device import float32_precision
+    from oct_image_segmentation_models_torch.common.model_io import LoadedModel
+    from oct_image_segmentation_models_torch.ops.s2d_unet import build_s2d_apply
+    from oct_image_segmentation_models_torch.prediction.streaming import (
+        VolumeSegmenter,
+    )
+
+    container, module = model
+    config = container.get_config()
     loaded = LoadedModel("unet", module, config)
     seg_fast = VolumeSegmenter(loaded, config, batch_size=BATCH, device="cuda")
     seg_exact = VolumeSegmenter(
         loaded, config, batch_size=BATCH, minpath_tie_parity="exact", device="cuda"
     )
-    volume = layered_bscans(rng, VOLUME, H, W, NUM_CLASSES)
+    if (seg_fast.kind, seg_exact.kind) != ("s2d", "s2d"):
+        raise AssertionError(f"VolumeSegmenter chose {seg_fast.kind}, not s2d")
 
-    delineate_cuda.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     labels, rows = seg_fast.segment_volume(volume)
     labels_x, rows_x = seg_exact.segment_volume(volume[:BATCH])
     torch.cuda.synchronize()
     first_run_s = time.perf_counter() - t0
-    launches = delineate_cuda.launches
+    counts = read_counts()
     print(
-        f"main path: {VOLUME} B-scans fast + {BATCH} exact in {first_run_s:.2f} s "
-        f"(first call), minpath kernel launches {launches}"
+        f"s2d path (kind {seg_fast.kind}): {VOLUME} B-scans fast + {BATCH} exact in "
+        f"{first_run_s:.2f} s (first call), launches {counts}"
     )
-    if launches < 1:
-        raise AssertionError("the main path never launched the CUDA min-path kernel")
+    if counts["minpath_dp_s2d"] < 1:
+        raise AssertionError("the s2d path never launched the s2d min-path kernel")
+    if counts["minpath_dp"] or counts["s2d_enc_pair"]:
+        raise AssertionError(f"the s2d path launched other kernels: {counts}")
+    check_rows("fast", labels, rows)
+    check_rows("exact", labels_x, rows_x)
 
-    m = NUM_CLASSES - 1
-    for name, got, want in (
-        ("labels", labels.shape, (VOLUME, H, W)),
-        ("rows", rows.shape, (VOLUME, m, W)),
-        ("exact rows", rows_x.shape, (BATCH, m, W)),
-    ):
-        if got != want:
-            raise AssertionError(f"{name} shape {got}, expected {want}")
-    if labels.dtype != np.uint8 or rows.dtype != np.uint16:
-        raise AssertionError(f"dtypes {labels.dtype}, {rows.dtype}")
-    if labels.max() >= NUM_CLASSES or rows.max() >= H:
-        raise AssertionError("labels or rows out of range")
+    # One B-scan's served labels against the CPU s2d forward.
+    cpu_fwd = build_s2d_apply(copy.deepcopy(module).cpu(), output="labels")
+    x = torch.from_numpy(volume[:1]).to(torch.float32) / 255.0
+    with torch.inference_mode(), float32_precision():
+        lab_cpu = cpu_fwd(x).numpy()
+    agree = float((labels[:1] == lab_cpu).mean())
+    print(f"s2d labels card vs CPU s2d forward, one B-scan: agreement {agree:.6f}")
+    if agree < MIN_AGREEMENT:
+        raise AssertionError(f"s2d labels agree with the CPU forward on {agree}")
+    return {
+        "launches": counts["minpath_dp_s2d"],
+        "agreement_cpu": agree,
+        "labels": labels,
+        "seg_fast": seg_fast,
+        "seg_exact": seg_exact,
+    }
 
-    # Rows against the plain min-path on maps rebuilt from the labels.
-    for tie, lab, got in (("fast", labels, rows), ("exact", labels_x, rows_x)):
-        maps = boundary_maps_from_labels(torch.from_numpy(lab).cuda(), NUM_CLASSES)
-        want = delineate_reference(
-            maps.transpose(-1, -2).contiguous(), tie_parity=tie
+
+def phase_folded(model, volume: np.ndarray) -> dict:
+    """The first slice's path: the BN-folded forward, B1."""
+    from oct_image_segmentation_models_torch._device import float32_precision
+    from oct_image_segmentation_models_torch.models.unet import fold_batchnorm
+    from oct_image_segmentation_models_torch.ops.inference import make_fused_pipeline
+
+    container, module = model
+    folded = fold_batchnorm(module)
+    pipes = {
+        tie: make_fused_pipeline(
+            folded,
+            container.get_preprocess_input_fn(),
+            minpath_tie_parity=tie,
+            return_maps=False,
+            device="cuda",
         )
-        if not np.array_equal(got.astype(np.int64), want.cpu().numpy()):
-            raise AssertionError(f"{tie}-tie rows differ from the plain min-path")
-        print(f"rows ({tie} ties) equal the plain min-path on the returned labels")
+        for tie in ("fast", "exact")
+    }
+    reset_counts()
+    labels, rows = run_volume(pipes["fast"], volume)
+    labels_x, rows_x = run_volume(pipes["exact"], volume[:BATCH])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"folded path: {VOLUME} B-scans fast + {BATCH} exact, launches {counts}")
+    if counts["minpath_dp"] < 1:
+        raise AssertionError("the folded path never launched the CUDA min-path kernel")
+    if counts["minpath_dp_s2d"] or counts["s2d_enc_pair"]:
+        raise AssertionError(f"the folded path launched other kernels: {counts}")
+    check_rows("fast", labels, rows)
+    check_rows("exact", labels_x, rows_x)
 
     # One B-scan's probabilities: the card's forward against the CPU's.
-    folded = fold_batchnorm(module)
     x = torch.from_numpy(volume[:1]).to(torch.float32) / 255.0
     with torch.inference_mode(), float32_precision():
         p_gpu = folded(x.cuda()).cpu()
@@ -265,19 +498,55 @@ def phase_slice(rng, seed: int) -> dict:
     prob_err = float((p_gpu - p_cpu).abs().max())
     agree = float((p_gpu.argmax(-1) == p_cpu.argmax(-1)).float().mean())
     print(
-        f"probabilities card vs CPU float32: max |diff| {prob_err:.3e} "
+        f"folded probabilities card vs CPU float32: max |diff| {prob_err:.3e} "
         f"(tolerance {PROB_ATOL:g}), argmax agreement {agree:.6f}"
     )
     if prob_err > PROB_ATOL:
         raise AssertionError(f"card forward off the CPU forward by {prob_err}")
     return {
-        "launches": launches,
+        "launches": counts["minpath_dp"],
         "prob_max_abs_err": prob_err,
         "argmax_agreement": agree,
-        "seg_fast": seg_fast,
-        "seg_exact": seg_exact,
+        "labels": labels,
+        "pipes": pipes,
         "folded": folded,
-        "volume": volume,
+    }
+
+
+def phase_fused(model, volume: np.ndarray, s2d_labels: np.ndarray) -> dict:
+    """One batch through the s2d forward with fused encoder pairs (B3)."""
+    from oct_image_segmentation_models_torch.ops.inference import make_fused_pipeline
+    from oct_image_segmentation_models_torch.ops.s2d_unet import build_s2d_apply
+
+    container, module = model
+    labels_fn = build_s2d_apply(module, output="labels_s2d", fuse_enc_pairs=True)
+    pipe = make_fused_pipeline(
+        None,
+        container.get_preprocess_input_fn(),
+        minpath_tie_parity="fast",
+        labels_apply_fn=labels_fn,
+        num_classes=NUM_CLASSES,
+        return_maps=False,
+        device="cuda",
+    )
+    batch = torch.from_numpy(volume[:BATCH]).pin_memory()
+    reset_counts()
+    labels, _, rows = pipe(batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"fused-pair path: one batch, launches {counts}")
+    if counts["s2d_enc_pair"] != 1 or counts["minpath_dp_s2d"] != 1:
+        raise AssertionError(f"expected one B3 and one B2 launch per batch: {counts}")
+    agree = float((labels.cpu().numpy() == s2d_labels[:BATCH]).mean())
+    print(f"fused-pair labels vs the unfused s2d forward: agreement {agree:.6f}")
+    if agree < MIN_AGREEMENT:
+        raise AssertionError(f"fused-pair labels agree with the unfused on {agree}")
+    check_rows("fast", labels.cpu().numpy(), rows.cpu().numpy())
+    return {
+        "launches": counts["s2d_enc_pair"],
+        "agreement_unfused": agree,
+        "labels_fn": labels_fn,
+        "pipe": pipe,
     }
 
 
@@ -294,30 +563,6 @@ def kernel_bound_ms(n: int, w: int, h: int, max_grad: int, exact: bool) -> tuple
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def conv_flops(module, x) -> int:
-    """Multiply-add FLOPs (2 per MAC) of every convolution in one forward
-    of ``module`` on ``x``, counted from the layers' output shapes."""
-    total = 0
-
-    def hook(conv, _inp, out):
-        nonlocal total
-        kh, kw = conv.kernel_size
-        total += 2 * out.numel() * (conv.in_channels // conv.groups) * kh * kw
-
-    handles = [
-        m.register_forward_hook(hook)
-        for m in module.modules()
-        if isinstance(m, torch.nn.Conv2d)
-    ]
-    try:
-        with torch.inference_mode():
-            module(x)
-    finally:
-        for h in handles:
-            h.remove()
-    return total
 
 
 def profile_pipeline(pipe, batch, calls: int = 3) -> dict:
@@ -351,64 +596,201 @@ def profile_pipeline(pipe, batch, calls: int = 3) -> dict:
     }
 
 
-def phase_times(sl: dict) -> dict:
+def enc_pair_bound_ms(b, nh, nw, cin4, c4) -> tuple:
+    """Least time for the encoder pair on these shapes: the dense
+    block-space FLOPs (2 per multiply-add, both convs, y1 with its
+    (nh+1, nw+1) shifted grid) over the float32 rate, against the bytes of
+    x, the weights and biases read once and y2 and pooled written once over
+    HBM bandwidth. Returns ``(ms, "bytes" | "operations", flop)``."""
+    flop = 2 * b * (
+        (nh + 1) * (nw + 1) * 4 * cin4 * c4 + nh * nw * 4 * c4 * c4
+    )
+    bytes_moved = 4 * (
+        b * nh * nw * cin4
+        + 4 * cin4 * c4
+        + 4 * c4 * c4
+        + 2 * c4
+        + b * nh * nw * c4
+        + b * nh * nw * c4 // 4
+    )
+    t_ops = flop / FP32_FLOPS_PER_S * 1e3
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", flop
+    return t_ops, "operations", flop
+
+
+def forward_flop(fn, x) -> int:
+    """FLOPs (2 per multiply-add) of the convolutions in one call of ``fn``
+    on ``x``, counted by ``torch.utils.flop_counter`` from the shapes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter, torch.inference_mode():
+        fn(x)
+    return counter.get_total_flops()
+
+
+def unfused_chain(args):
+    """The encoder pair as cuDNN calls on NCHW operands (the yardstick;
+    the port never runs it on a CUDA tensor): pad + conv + ReLU + edge
+    masks, conv + ReLU, phase max."""
+    import torch.nn.functional as F
+
+    from oct_image_segmentation_models_torch.ops.s2d_unet import _mask_shifted_nchw
+
+    x, w1, b1, w2, b2 = args
+    b, nh, nw, _ = x.shape
+    c4 = w1.shape[-1]
+    x = x.permute(0, 3, 1, 2).contiguous()
+    w1 = w1.permute(3, 2, 0, 1).contiguous()
+    w2 = w2.permute(3, 2, 0, 1).contiguous()
+
+    def run():
+        y1 = F.relu(F.conv2d(F.pad(x, (1, 1, 1, 1)), w1, b1))
+        y2 = F.relu(F.conv2d(_mask_shifted_nchw(y1), w2, b2))
+        return y2, y2.reshape(b, 4, c4 // 4, nh, nw).amax(dim=1)
+
+    return run
+
+
+def phase_times(model, s2d: dict, folded: dict, fused: dict, pair_args) -> dict:
     from oct_image_segmentation_models_torch._device import float32_precision
     from oct_image_segmentation_models_torch.ops import boundary as bops
-    from oct_image_segmentation_models_torch.ops.minpath import delineate_reference
-    from oct_image_segmentation_models_torch.ops.minpath_cuda import delineate_cuda
+    from oct_image_segmentation_models_torch.ops.minpath import (
+        delineate_reference,
+        delineate_s2d_reference,
+    )
+    from oct_image_segmentation_models_torch.ops.minpath_cuda import (
+        delineate_cuda,
+        delineate_cuda_s2d,
+    )
+    from oct_image_segmentation_models_torch.ops.s2d_enc_pair import (
+        fused_enc_pair_reference,
+    )
+    from oct_image_segmentation_models_torch.ops.s2d_enc_pair_cuda import (
+        fused_enc_pair_cuda,
+    )
+    from oct_image_segmentation_models_torch.ops.s2d_unet import build_s2d_apply, d2s
 
-    batch = torch.from_numpy(sl["volume"][:BATCH]).pin_memory()
+    _, module = model
+    volume = s2d["volume"]
+    batch = torch.from_numpy(volume[:BATCH]).pin_memory()
     out = {}
-    for tie in ("fast", "exact"):
-        pipe = sl[f"seg_{tie}"]._pipeline
-        ms = time_cuda(lambda: pipe(batch), iters=3)
-        out[f"pipeline_{tie}_ms"] = ms
-        out[f"pipeline_{tie}_bscans_per_s"] = BATCH / ms * 1e3
+    pipes = {
+        "s2d": {t: s2d[f"seg_{t}"]._pipeline for t in ("fast", "exact")},
+        "folded": folded["pipes"],
+    }
+    for path, by_tie in pipes.items():
+        for tie, pipe in by_tie.items():
+            ms = time_cuda(lambda: pipe(batch), iters=3)
+            out[f"{path}_pipeline_{tie}_ms"] = ms
+            out[f"{path}_pipeline_{tie}_bscans_per_s"] = BATCH / ms * 1e3
 
-    seg = sl["seg_fast"]
     t0 = time.perf_counter()
-    seg.segment_volume(sl["volume"])
+    s2d["seg_fast"].segment_volume(volume)
     out["volume_s"] = time.perf_counter() - t0
     out["volume_bscans_per_s"] = VOLUME / out["volume_s"]
 
-    out.update(profile_pipeline(sl["seg_fast"]._pipeline, batch))
+    for path in ("s2d", "folded"):
+        for key, value in profile_pipeline(pipes[path]["fast"], batch).items():
+            out[f"{path}_{key}"] = value
 
-    # Stages of one batch.
     x = (batch.cuda().to(torch.float32) / 255.0).contiguous()
-    folded = sl["folded"]
-    out["forward_gflop_per_batch"] = conv_flops(folded, x) / 1e9
+    s2d_fwd = build_s2d_apply(module, output="labels_s2d")
+    fused_fwd = fused["labels_fn"]
+    fold_fwd = folded["folded"]
     with torch.inference_mode(), float32_precision():
-        out["forward_ms"] = time_cuda(lambda: folded(x), iters=3)
-        out["forward_tflops"] = out["forward_gflop_per_batch"] / out["forward_ms"]
-        out["forward_bound_ms"] = (
-            out["forward_gflop_per_batch"] * 1e9 / FP32_FLOPS_PER_S * 1e3
-        )
-        probs = folded(x)
+        # s2d stages.
+        out["s2d_forward_gflop"] = forward_flop(s2d_fwd, x) / 1e9
+        out["s2d_forward_ms"] = time_cuda(lambda: s2d_fwd(x), iters=3)
+        out["s2d_fused_forward_ms"] = time_cuda(lambda: fused_fwd(x), iters=3)
+        lab_s2d = s2d_fwd(x)
 
-        def post():
+        def s2d_maps():
+            d2s(lab_s2d)[..., 0]
+            return bops.boundary_maps_from_s2d_labels(
+                lab_s2d, NUM_CLASSES, transposed="s2d"
+            )
+
+        out["s2d_maps_ms"] = time_cuda(s2d_maps, iters=5)
+        maps_s2d = s2d_maps()
+        # Folded stages (the first slice's).
+        out["folded_forward_gflop"] = forward_flop(fold_fwd, x) / 1e9
+        out["folded_forward_ms"] = time_cuda(lambda: fold_fwd(x), iters=3)
+        probs = fold_fwd(x)
+
+        def folded_maps():
             _, cat = bops.perform_argmax(probs)
             return bops.boundary_prob_maps(cat)
 
-        out["maps_ms"] = time_cuda(post, iters=5)
-        maps_img = post()
-        out["transpose_ms"] = time_cuda(
+        out["folded_maps_ms"] = time_cuda(folded_maps, iters=5)
+        maps_img = folded_maps()
+        out["folded_transpose_ms"] = time_cuda(
             lambda: maps_img.transpose(-1, -2).contiguous(), iters=5
         )
         maps_t = maps_img.transpose(-1, -2).contiguous()
+        for path in ("s2d", "folded"):
+            gflop = out[f"{path}_forward_gflop"]
+            out[f"{path}_forward_tflops"] = gflop / out[f"{path}_forward_ms"]
+            out[f"{path}_forward_bound_ms"] = gflop * 1e9 / FP32_FLOPS_PER_S * 1e3
+
+        n_maps, w = maps_t.shape[0] * maps_t.shape[1], maps_t.shape[2]
         for tie in ("fast", "exact"):
-            out[f"kernel_{tie}_ms"] = time_cuda(
+            bound, by = kernel_bound_ms(n_maps, w, H, 1, tie == "exact")
+            # B1 on the folded path's maps.
+            out[f"b1_{tie}_ms"] = time_cuda(
                 lambda: delineate_cuda(maps_t, tie_parity=tie), iters=10
             )
-            out[f"plain_{tie}_ms"] = time_cuda(
+            out[f"b1_plain_{tie}_ms"] = time_cuda(
                 lambda: delineate_reference(maps_t, tie_parity=tie),
-                iters=1,
-                reps=3,
-                warmup=1,
+                iters=1, reps=3, warmup=1,
             )
-            bound, by = kernel_bound_ms(N_MAPS, W, H, 1, tie == "exact")
-            out[f"bound_{tie}_ms"] = bound
-            out[f"bound_{tie}_by"] = by
+            # B2 on the s2d path's maps, and its yardstick: transpose + B1.
+            out[f"b2_{tie}_ms"] = time_cuda(
+                lambda: delineate_cuda_s2d(maps_s2d, tie_parity=tie), iters=10
+            )
+            out[f"b2_yardstick_{tie}_ms"] = time_cuda(
+                lambda: delineate_cuda(
+                    bops.s2d_maps_to_transposed(maps_s2d).contiguous(), tie_parity=tie
+                ),
+                iters=10,
+            )
+            out[f"b2_plain_{tie}_ms"] = time_cuda(
+                lambda: delineate_s2d_reference(maps_s2d, tie_parity=tie),
+                iters=1, reps=3, warmup=1,
+            )
+            out[f"minpath_bound_{tie}_ms"] = bound
+            out[f"minpath_bound_{tie}_by"] = by
+
+        # B3 at the flagship level-1 shape.
+        shape = tuple(pair_args[0].shape) + (pair_args[1].shape[-1],)
+        out["b3_ms"] = time_cuda(lambda: fused_enc_pair_cuda(*pair_args), iters=5)
+        out["b3_plain_ms"] = time_cuda(
+            lambda: fused_enc_pair_reference(*pair_args), iters=3
+        )
+        out["b3_library_ms"] = time_cuda(unfused_chain(pair_args), iters=3)
+        out["b3_shape"] = shape
+        bound, by, flop = enc_pair_bound_ms(*shape)
+        out["b3_bound_ms"], out["b3_bound_by"] = bound, by
+        out["b3_tflops"] = flop / 1e9 / out["b3_ms"]
     return out
+
+
+def kernel_line(name, source, replaces, launches, max_err, ms, plain, bound, by, lib):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": lib,
+    }
 
 
 def main(argv=None) -> int:
@@ -424,66 +806,107 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     env = phase_environment()
     parity = phase_kernel_parity(rng)
-    sl = phase_slice(rng, args.seed)
-    times = phase_times(sl)
+    parity_s2d = phase_s2d_kernel_parity(rng)
+    parity_pair = phase_enc_pair_parity(rng)
+    model = build_unet(args.seed)
+    volume = layered_bscans(rng, VOLUME, H, W, NUM_CLASSES)
+    s2d = phase_s2d_slice(model, volume)
+    s2d["volume"] = volume
+    folded = phase_folded(model, volume)
+    agree_folded = float((s2d["labels"] == folded["labels"]).mean())
+    print(f"s2d labels vs folded labels, {VOLUME} B-scans: agreement {agree_folded:.6f}")
+    fused = phase_fused(model, volume, s2d["labels"])
+    times = phase_times(model, s2d, folded, fused, parity_pair["flagship_args"])
 
     card = env["card"]
-    for tie in ("fast", "exact"):
+    for path in ("s2d", "folded"):
+        for tie in ("fast", "exact"):
+            print(
+                f"[{card}] {path} pipeline batch {BATCH} x {H}x{W}, {tie} ties: "
+                f"{times[f'{path}_pipeline_{tie}_ms']:.3f} ms/batch, "
+                f"{times[f'{path}_pipeline_{tie}_bscans_per_s']:.1f} B-scans/s"
+            )
+    print(
+        f"[{card}] s2d stages (batch {BATCH}): forward {times['s2d_forward_ms']:.3f} ms "
+        f"({times['s2d_forward_gflop']:.1f} GFLOP, {times['s2d_forward_tflops']:.2f} "
+        f"TFLOP/s, float32 bound {times['s2d_forward_bound_ms']:.3f} ms), with B3 "
+        f"{times['s2d_fused_forward_ms']:.3f} ms, labels+maps "
+        f"{times['s2d_maps_ms']:.3f} ms, B2 fast {times['b2_fast_ms']:.3f} ms / "
+        f"exact {times['b2_exact_ms']:.3f} ms"
+    )
+    print(
+        f"[{card}] folded stages (batch {BATCH}): forward "
+        f"{times['folded_forward_ms']:.3f} ms ({times['folded_forward_gflop']:.1f} "
+        f"GFLOP, {times['folded_forward_tflops']:.2f} TFLOP/s, float32 bound "
+        f"{times['folded_forward_bound_ms']:.3f} ms), argmax+maps "
+        f"{times['folded_maps_ms']:.3f} ms, transpose "
+        f"{times['folded_transpose_ms']:.3f} ms, B1 fast {times['b1_fast_ms']:.3f} ms"
+        f" / exact {times['b1_exact_ms']:.3f} ms"
+    )
+    for path in ("s2d", "folded"):
+        busy = times[f"{path}_device_busy_share"]
         print(
-            f"[{card}] pipeline batch {BATCH} x {H}x{W}, {tie} ties: "
-            f"{times[f'pipeline_{tie}_ms']:.3f} ms/batch, "
-            f"{times[f'pipeline_{tie}_bscans_per_s']:.1f} B-scans/s"
+            f"[{card}] profiled {path} pipeline (fast): wall "
+            f"{times[f'{path}_profiled_wall_ms_per_batch']:.3f} ms/batch, device "
+            f"{times[f'{path}_device_ms_per_batch']:.3f} ms/batch, busy share "
+            + ("not measured" if busy is None else f"{busy:.4f}")
         )
+        for name, ms in times[f"{path}_top_kernels_ms_per_batch"]:
+            print(f"  {ms:9.3f} ms/batch  {name[:100]}")
     print(
-        f"[{card}] stages (batch {BATCH}): forward {times['forward_ms']:.3f} ms, "
-        f"argmax+maps {times['maps_ms']:.3f} ms, transpose "
-        f"{times['transpose_ms']:.3f} ms, minpath fast {times['kernel_fast_ms']:.3f}"
-        f" ms / exact {times['kernel_exact_ms']:.3f} ms"
-    )
-    print(
-        f"[{card}] forward: {times['forward_gflop_per_batch']:.1f} GFLOP/batch, "
-        f"{times['forward_tflops']:.2f} TFLOP/s, float32 bound "
-        f"{times['forward_bound_ms']:.3f} ms"
-    )
-    busy = times["device_busy_share"]
-    print(
-        f"[{card}] profiled pipeline (fast): wall "
-        f"{times['profiled_wall_ms_per_batch']:.3f} ms/batch, device "
-        f"{times['device_ms_per_batch']:.3f} ms/batch, busy share "
-        + ("not measured" if busy is None else f"{busy:.4f}")
-    )
-    for name, ms in times["top_kernels_ms_per_batch"]:
-        print(f"  {ms:9.3f} ms/batch  {name[:100]}")
-    print(
-        f"[{card}] volume of {VOLUME} B-scans: {times['volume_s']:.3f} s, "
+        f"[{card}] volume of {VOLUME} B-scans (s2d path): {times['volume_s']:.3f} s, "
         f"{times['volume_bscans_per_s']:.1f} B-scans/s"
     )
     for tie in ("fast", "exact"):
         print(
-            f"[{card}] minpath_dp {tie} at {N_MAPS}x{W}x{H}: kernel "
-            f"{times[f'kernel_{tie}_ms']:.4f} ms, plain "
-            f"{times[f'plain_{tie}_ms']:.1f} ms, bound "
-            f"{times[f'bound_{tie}_ms']:.5f} ms ({times[f'bound_{tie}_by']})"
+            f"[{card}] minpath {tie} at {N_MAPS}x{W}x{H}: B1 "
+            f"{times[f'b1_{tie}_ms']:.4f} ms (plain {times[f'b1_plain_{tie}_ms']:.1f}"
+            f" ms), B2 {times[f'b2_{tie}_ms']:.4f} ms (plain "
+            f"{times[f'b2_plain_{tie}_ms']:.1f} ms, transpose + B1 "
+            f"{times[f'b2_yardstick_{tie}_ms']:.4f} ms), bound "
+            f"{times[f'minpath_bound_{tie}_ms']:.5f} ms "
+            f"({times[f'minpath_bound_{tie}_by']})"
         )
-    kernels = [
-        {
-            "name": "minpath_dp",
-            "route": "cuda",
-            "source": "oct_image_segmentation_models_torch/csrc/minpath.cu",
-            "replaces": "oct_image_segmentation_models_tpu/ops/minpath_pallas.py:487",
-            "launches": sl["launches"],
-            "max_abs_err": parity["max_abs_err"],
-            "ms": times["kernel_fast_ms"],
-            "plain_ms": times["plain_fast_ms"],
-            "bound_ms": times["bound_fast_ms"],
-            "bound_by": times["bound_fast_by"],
-            "library_ms": None,
-            "ms_exact": times["kernel_exact_ms"],
-            "plain_ms_exact": times["plain_exact_ms"],
-            "bound_ms_exact": times["bound_exact_ms"],
-            "bound_by_exact": times["bound_exact_by"],
-        }
-    ]
+    print(
+        f"[{card}] s2d_enc_pair at x {times['b3_shape'][:4]}, 4C "
+        f"{times['b3_shape'][4]}: kernel "
+        f"{times['b3_ms']:.3f} ms ({times['b3_tflops']:.2f} TFLOP/s), plain "
+        f"{times['b3_plain_ms']:.3f} ms, unfused cuDNN chain "
+        f"{times['b3_library_ms']:.3f} ms, bound {times['b3_bound_ms']:.3f} ms "
+        f"({times['b3_bound_by']})"
+    )
+    minpath_src = "oct_image_segmentation_models_torch/csrc/minpath.cu"
+    tpu_minpath = "oct_image_segmentation_models_tpu/ops/minpath_pallas.py"
+    kernels = []
+    for name, launches, err, key, replaces in (
+        ("minpath_dp", folded["launches"], parity["max_abs_err"], "b1", f"{tpu_minpath}:487"),
+        ("minpath_dp_s2d", s2d["launches"], parity_s2d["max_abs_err"], "b2", f"{tpu_minpath}:533"),
+    ):
+        line = kernel_line(
+            name, minpath_src, replaces, launches, err,
+            times[f"{key}_fast_ms"], times[f"{key}_plain_fast_ms"],
+            times["minpath_bound_fast_ms"], times["minpath_bound_fast_by"], None,
+        )
+        line.update(
+            ms_exact=times[f"{key}_exact_ms"],
+            plain_ms_exact=times[f"{key}_plain_exact_ms"],
+            bound_ms_exact=times["minpath_bound_exact_ms"],
+            bound_by_exact=times["minpath_bound_exact_by"],
+        )
+        if key == "b2":
+            line["transpose_then_b1_ms"] = times["b2_yardstick_fast_ms"]
+            line["transpose_then_b1_ms_exact"] = times["b2_yardstick_exact_ms"]
+        kernels.append(line)
+    kernels.append(
+        kernel_line(
+            "s2d_enc_pair",
+            "oct_image_segmentation_models_torch/csrc/s2d_enc_pair.cu",
+            "oct_image_segmentation_models_tpu/ops/s2d_pallas.py:153",
+            fused["launches"], parity_pair["max_abs_err"], times["b3_ms"],
+            times["b3_plain_ms"], times["b3_bound_ms"], times["b3_bound_by"],
+            times["b3_library_ms"],
+        )
+    )
     if args.out:
         record = {
             "card": card,
@@ -491,9 +914,12 @@ def main(argv=None) -> int:
             "cuda": torch.version.cuda,
             "seed": args.seed,
             "build_s": env["build_s"],
-            "parity_cases": parity["cases"],
-            "prob_max_abs_err": sl["prob_max_abs_err"],
-            "argmax_agreement": sl["argmax_agreement"],
+            "parity_cases": {"b1": parity["cases"], "b2": parity_s2d["cases"]},
+            "prob_max_abs_err": folded["prob_max_abs_err"],
+            "folded_argmax_agreement_cpu": folded["argmax_agreement"],
+            "s2d_agreement_cpu": s2d["agreement_cpu"],
+            "s2d_vs_folded_agreement": agree_folded,
+            "fused_vs_unfused_agreement": fused["agreement_unfused"],
             "times": times,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start,

@@ -31,6 +31,20 @@
 // This first design leaves 24 CTAs on 132 SMs at the flagship shape (one map
 // each), so most of the card idles; splitting a map's rows across a cluster
 // or packing several maps per SM is the first thing a later change fixes.
+//
+// Two map layouts share the kernel, a template parameter that decides only
+// the address of (map, column, row); the exit row reads the last column
+// through the same address, so nothing else differs:
+// - LayoutWH, (N, W, H): column j, row r at j*H + r. Entry
+//   minpath_delineate; replaces minpath_pallas.py::delineate_pallas.
+// - LayoutS2D, (N, H/2, W/2, 4) with channels (q_h, q_w): column j, row r at
+//   ((r>>1) * W/2 + (j>>1)) * 4 + 2*(r&1) + (j&1). Entry minpath_delineate_s2d;
+//   replaces minpath_pallas.py::delineate_pallas_s2d, which packs the s2d
+//   maps with a 6-D transpose first. Here nothing is transposed: the kernel
+//   reads the s2d maps in place. Neighbouring rows then sit 4*W/2 bytes
+//   apart, so a warp's column load touches 16 sectors where LayoutWH touches
+//   one. That is accepted in this design; the yardstick it has to beat is the
+//   transpose to (N, W, H) followed by the LayoutWH kernel.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -38,6 +52,18 @@
 namespace {
 
 constexpr int kBig = 1 << 30;
+
+struct LayoutWH {
+  __device__ static size_t at(int j, int r, int w, int h) {
+    return (size_t)j * h + r;
+  }
+};
+
+struct LayoutS2D {
+  __device__ static size_t at(int j, int r, int w, int h) {
+    return ((size_t)(r >> 1) * (w >> 1) + (j >> 1)) * 4 + 2 * (r & 1) + (j & 1);
+  }
+};
 
 struct Params {
   int n, w, h, g;
@@ -117,7 +143,7 @@ __device__ void settle_rank(Key* keys, int* idx, int* rank) {
   rank[idx[t]] = t;
 }
 
-template <bool kExact, typename Key>
+template <bool kExact, typename Key, typename Layout>
 __global__ void minpath_kernel(const uint8_t* __restrict__ maps,
                                uint8_t* __restrict__ choices,
                                int32_t* __restrict__ rows_out, Params prm) {
@@ -144,7 +170,7 @@ __global__ void minpath_kernel(const uint8_t* __restrict__ maps,
   uint8_t* cp = choices + map_off;
 
   // Column 0: entry edge from the virtual all-ones column.
-  int m_cur = real ? (int)mp[r] : 0;
+  int m_cur = real ? (int)mp[Layout::at(0, r, w, h)] : 0;
   if (real) {
     const int vl = prm.vlvl;
     s_d[r] = 255 - m_cur;
@@ -158,12 +184,12 @@ __global__ void minpath_kernel(const uint8_t* __restrict__ maps,
     s_key[r] = real ? make_key<Key>(255 - m_cur, r, prm.fb) : key_pad;
     settle_rank<Key>(s_key, s_idx, s_rank);
   }
-  int m_next = (real && w > 1) ? (int)mp[h + r] : 0;
+  int m_next = (real && w > 1) ? (int)mp[Layout::at(1, r, w, h)] : 0;
 
   const int n_cand = 2 * g + 1;
   for (int j = 1; j < w; ++j) {
     m_cur = m_next;
-    if (real && j + 1 < w) m_next = (int)mp[(size_t)(j + 1) * h + r];
+    if (real && j + 1 < w) m_next = (int)mp[Layout::at(j + 1, r, w, h)];
     __syncthreads();  // column j-1's state is visible
 
     int d_new = kBig, pri_new = 0, c1_new = 0, c2_new = 0, rw_new = 0;
@@ -332,23 +358,19 @@ __global__ void minpath_kernel(const uint8_t* __restrict__ maps,
   }
 }
 
-template <bool kExact, typename Key>
+template <bool kExact, typename Key, typename Layout>
 cudaError_t launch(const uint8_t* maps, uint8_t* choices, int32_t* rows,
                    const Params& prm, int p, cudaStream_t stream) {
   const size_t smem = (size_t)p * sizeof(Key) + (size_t)8 * p * sizeof(int) +
                       32 * sizeof(int);
-  minpath_kernel<kExact, Key><<<prm.n, p, smem, stream>>>(maps, choices, rows,
-                                                          prm);
+  minpath_kernel<kExact, Key, Layout><<<prm.n, p, smem, stream>>>(maps, choices,
+                                                                  rows, prm);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// maps (n, w, h) uint8, choices (n, w, h) uint8 scratch, rows (n, w) int32,
-// all contiguous on the current device. Returns the cudaError_t of the launch.
-extern "C" int minpath_delineate(const uint8_t* maps, uint8_t* choices,
-                                 int32_t* rows, int n, int w, int h,
-                                 int max_grad, int exact, void* stream) {
+template <typename Layout>
+int delineate(const uint8_t* maps, uint8_t* choices, int32_t* rows, int n, int w,
+              int h, int max_grad, int exact, void* stream) {
   if (n <= 0 || w <= 0 || h <= 0 || h > 1024 || max_grad < 0 || max_grad > 30)
     return (int)cudaErrorInvalidValue;
   int p = 32;
@@ -378,7 +400,29 @@ extern "C" int minpath_delineate(const uint8_t* maps, uint8_t* choices,
   const long long d_max = 255 + 510ll * (w - 1);
   const bool pack32 = fb < 32 && ((d_max + 1) << fb) <= 0xffffffffll;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!exact) return (int)launch<false, uint32_t>(maps, choices, rows, prm, p, s);
-  if (pack32) return (int)launch<true, uint32_t>(maps, choices, rows, prm, p, s);
-  return (int)launch<true, uint64_t>(maps, choices, rows, prm, p, s);
+  if (!exact)
+    return (int)launch<false, uint32_t, Layout>(maps, choices, rows, prm, p, s);
+  if (pack32)
+    return (int)launch<true, uint32_t, Layout>(maps, choices, rows, prm, p, s);
+  return (int)launch<true, uint64_t, Layout>(maps, choices, rows, prm, p, s);
+}
+
+}  // namespace
+
+// maps (n, w, h) uint8, choices (n, w, h) uint8 scratch, rows (n, w) int32,
+// all contiguous on the current device. Returns the cudaError_t of the launch.
+extern "C" int minpath_delineate(const uint8_t* maps, uint8_t* choices,
+                                 int32_t* rows, int n, int w, int h,
+                                 int max_grad, int exact, void* stream) {
+  return delineate<LayoutWH>(maps, choices, rows, n, w, h, max_grad, exact, stream);
+}
+
+// maps (n, h/2, w/2, 4) uint8 in s2d layout, channels (q_h, q_w); w and h
+// even. choices and rows as for minpath_delineate.
+extern "C" int minpath_delineate_s2d(const uint8_t* maps, uint8_t* choices,
+                                     int32_t* rows, int n, int w, int h,
+                                     int max_grad, int exact, void* stream) {
+  if (w % 2 || h % 2) return (int)cudaErrorInvalidValue;
+  return delineate<LayoutS2D>(maps, choices, rows, n, w, h, max_grad, exact,
+                              stream);
 }

@@ -6,6 +6,9 @@ NumPy post-processing):
 - :func:`perform_argmax`: argmax class map + class-first categorical;
 - :func:`boundary_prob_maps` / :func:`boundary_maps_from_labels`: class
   masks -> per-boundary uint8 ridge maps;
+- :func:`boundary_maps_from_s2d_labels`: the same maps computed from
+  argmax labels in s2d layout, with :func:`s2d_maps_to_image` and
+  :func:`s2d_maps_to_transposed`;
 - :func:`repair_segs` / :func:`create_area_mask`: boundary rows -> dense
   region mask, with the NaN/0 repair semantics.
 
@@ -119,6 +122,83 @@ def boundary_maps_from_labels(
         v = torch.clamp(r - torch.roll(r, -1, dims=-2), min=0)
         maps.append((v * 255).to(torch.uint8))
     return torch.stack(maps, dim=1)
+
+
+def boundary_maps_from_s2d_labels(
+    lab_s2d: torch.Tensor,
+    num_classes: int,
+    bg_ilm: bool = True,
+    bg_csi: bool = False,
+    transposed=False,
+) -> torch.Tensor:
+    """:func:`boundary_maps_from_labels` computed on s2d labels.
+
+    ``lab_s2d``: ``(B, Hb, Wb, 4)`` integer labels, channel layout
+    ``(q_h, q_w)``: rows ``2i`` sit in phases ``q_h = 0`` and rows ``2i+1``
+    in ``q_h = 1``, so the ``r +- 1`` neighbourhoods of the vertical
+    gradient become block shifts along Hb. Output is identical to
+    ``boundary_maps_from_labels(d2s(labels), ...)``.
+
+    ``transposed``: False gives image maps ``(B, C-1, H, W)``, True the
+    min-path's ``(B, C-1, W, H)``, ``"s2d"`` the s2d-form maps ``(B, C-1,
+    Hb, Wb, 4)`` (for :func:`.minpath.delineate_s2d`).
+    """
+    lab = lab_s2d.to(torch.int32)
+    a = lab[..., 0:2]  # rows 2i   (q_h = 0), channels = q_w
+    b = lab[..., 2:4]  # rows 2i+1 (q_h = 1)
+
+    def ridge(cls, sign):
+        oha = (a == cls).to(torch.int32)
+        ohb = (b == cls).to(torch.int32)
+        # g2 = sign * 2 * np.gradient(oh, axis=rows), split by row parity:
+        #   row 2i   (i>=1): oh[2i+1] - oh[2i-1] = ohb[i] - ohb[i-1]
+        #   row 0          : 2*(oh[1] - oh[0])   = 2*(ohb[0] - oha[0])
+        #   row 2i+1 (i<nh-1): oh[2i+2] - oh[2i] = oha[i+1] - oha[i]
+        #   row H-1        : 2*(oh[H-1] - oh[H-2]) = 2*(ohb[-1] - oha[-1])
+        g2_even = torch.cat(
+            [2 * (ohb[:, :1] - oha[:, :1]), ohb[:, 1:] - ohb[:, :-1]], dim=1
+        )
+        g2_odd = torch.cat(
+            [oha[:, 1:] - oha[:, :-1], 2 * (ohb[:, -1:] - oha[:, -1:])], dim=1
+        )
+        rr_even = torch.clamp(sign * g2_even, min=0)
+        rr_odd = torch.clamp(sign * g2_odd, min=0)
+        # v[r] = max(rr[r] - rr[(r+1) mod H], 0)  (np.roll wraps)
+        rr_even_next = torch.cat([rr_even[:, 1:], rr_even[:, :1]], dim=1)
+        v_even = torch.clamp(rr_even - rr_odd, min=0)
+        v_odd = torch.clamp(rr_odd - rr_even_next, min=0)
+        # back to the (q_h, q_w) channel layout; * 255 wraps 510 -> 254
+        v = torch.cat([v_even, v_odd], dim=-1) * 255
+        return v.to(torch.uint8)
+
+    maps = []
+    for map_ind in range(1, num_classes):
+        if _use_bg(map_ind, num_classes, bg_ilm, bg_csi):
+            maps.append(ridge(map_ind - 1, -1))
+        else:
+            maps.append(ridge(map_ind, 1))
+    m = torch.stack(maps, dim=1)  # (B, M, Hb, Wb, 4)
+    if transposed == "s2d":
+        return m
+    if transposed:
+        return s2d_maps_to_transposed(m)
+    return s2d_maps_to_image(m)
+
+
+def s2d_maps_to_image(m: torch.Tensor) -> torch.Tensor:
+    """s2d-form maps ``(B, M, Hb, Wb, 4)`` -> image ``(B, M, H, W)``."""
+    B, M, Hb, Wb, _ = m.shape
+    m = m.reshape(B, M, Hb, Wb, 2, 2)
+    # (b, m, i, j, qh, qw) -> (b, m, i, qh, j, qw) = (B, M, H, W)
+    return m.permute(0, 1, 2, 4, 3, 5).reshape(B, M, 2 * Hb, 2 * Wb)
+
+
+def s2d_maps_to_transposed(m: torch.Tensor) -> torch.Tensor:
+    """s2d-form maps -> the min-path's ``(B, M, W, H)`` orientation."""
+    B, M, Hb, Wb, _ = m.shape
+    m = m.reshape(B, M, Hb, Wb, 2, 2)
+    # (b, m, i, j, qh, qw) -> (b, m, j, qw, i, qh) = (B, M, W, H)
+    return m.permute(0, 1, 3, 5, 2, 4).reshape(B, M, 2 * Wb, 2 * Hb)
 
 
 def repair_segs(segs: torch.Tensor, image_height: int) -> torch.Tensor:

@@ -21,7 +21,11 @@ Two implementations share one contract, ``(..., W, H) uint8 ->
 - :func:`.minpath_cuda.delineate_cuda`, the hand-written CUDA kernel
   (``csrc/minpath.cu``) that replaces the Pallas TPU kernel.
 
-:func:`delineate` dispatches between them.
+:func:`delineate` dispatches between them. The s2d maps of the s2d
+serving path, ``(B, M, Hb, Wb, 4)``, have the same pair:
+:func:`delineate_s2d_reference` and
+:func:`.minpath_cuda.delineate_cuda_s2d`, which reads the s2d layout in
+place; :func:`delineate_s2d` dispatches between them.
 """
 
 from __future__ import annotations
@@ -93,6 +97,40 @@ def delineate(
 
         return delineate_cuda(maps_u8, max_grad=max_grad, tie_parity=tie_parity)
     return delineate_reference(maps_u8, max_grad=max_grad, tie_parity=tie_parity)
+
+
+def delineate_s2d(
+    maps_s2d_u8: torch.Tensor,
+    max_grad: int = 1,
+    tie_parity: str = "exact",
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Delineate s2d maps ``(B, M, Hb, Wb, 4)`` uint8 (channels
+    ``(q_h, q_w)``) into ``(B, M, 2 Wb)`` int32 rows with the CUDA kernel
+    or the plain version (see :func:`use_kernel`)."""
+    if use_kernel(maps_s2d_u8, backend):
+        from .minpath_cuda import delineate_cuda_s2d
+
+        return delineate_cuda_s2d(
+            maps_s2d_u8, max_grad=max_grad, tie_parity=tie_parity
+        )
+    return delineate_s2d_reference(
+        maps_s2d_u8, max_grad=max_grad, tie_parity=tie_parity
+    )
+
+
+def delineate_s2d_reference(
+    maps_s2d_u8: torch.Tensor, max_grad: int = 1, tie_parity: str = "exact"
+) -> torch.Tensor:
+    """Plain version of the s2d min-path: the maps transposed to the
+    ``(B, M, W, H)`` orientation, then :func:`delineate_reference`."""
+    from .boundary import s2d_maps_to_transposed
+
+    return delineate_reference(
+        s2d_maps_to_transposed(maps_s2d_u8).contiguous(),
+        max_grad=max_grad,
+        tie_parity=tie_parity,
+    )
 
 
 def _shift_up(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -49,7 +49,9 @@ class VolumeSegmenter:
         self.batch_size = batch_size
         container = get_model_class(loaded_model.name)(**model_config)
         self._model_div = container.spatial_divisor
-        forward, _kind = select_optimized_forward(
+        # The s2d labels forward for an eligible U-Net, else the BN-folded
+        # one; ``kind`` says which ("s2d", "folded" or "parity").
+        forward, self.kind = select_optimized_forward(
             loaded_model.module, compute_dtype=compute_dtype, optimize=optimize
         )
         self._pipeline = make_fused_pipeline(
@@ -60,6 +62,8 @@ class VolumeSegmenter:
             max_grad=max_grad,
             with_graph_search=with_graph_search,
             minpath_tie_parity=minpath_tie_parity,
+            labels_apply_fn=forward if self.kind == "s2d" else None,
+            num_classes=loaded_model.output_classes,
             return_maps=False,
             device=self.device,
         )

@@ -132,3 +132,53 @@ def test_create_area_mask_matches_jax(dtype):
     got = tb.create_area_mask(torch.from_numpy(segs), 16).numpy()
     assert got.dtype == np.uint8 and got.shape == (2, 16, 6)
     assert np.array_equal(got, want)
+
+
+def _s2d_labels(rng, b=2, h=20, w=18, c=4):
+    """(B, H/2, W/2, 4) s2d labels, channels (q_h, q_w), of layered labels."""
+    lab = _labels(rng, b=b, h=h, w=w, c=c)
+    return lab.reshape(b, h // 2, 2, w // 2, 2).transpose(0, 1, 3, 2, 4).reshape(
+        b, h // 2, w // 2, 4
+    )
+
+
+@pytest.mark.parametrize("transposed", [False, True, "s2d"])
+@pytest.mark.parametrize(
+    "bg_ilm,bg_csi", [(True, False), (False, False), (True, True), (False, True)]
+)
+def test_boundary_maps_from_s2d_labels_matches_jax(bg_ilm, bg_csi, transposed):
+    rng = np.random.default_rng(11)
+    lab = _s2d_labels(rng, c=5).astype(np.uint8)
+    want = np.asarray(
+        jb.boundary_maps_from_s2d_labels(
+            lab, 5, bg_ilm=bg_ilm, bg_csi=bg_csi, transposed=transposed
+        )
+    )
+    got = tb.boundary_maps_from_s2d_labels(
+        torch.from_numpy(lab), 5, bg_ilm=bg_ilm, bg_csi=bg_csi, transposed=transposed
+    ).numpy()
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    assert np.array_equal(got, want)
+
+
+def test_s2d_maps_match_image_maps_and_wrap():
+    # Class 1 on row 1 only: the ridge at row 0 is 2, which wraps to 254;
+    # the last block row exercises the np.roll wrap.
+    lab = np.full((1, 8, 6), 2, np.int64)
+    lab[0, 0, :] = 0
+    lab[0, 1, :] = 1
+    lab[0, 7, :] = 1
+    s2d = lab.reshape(1, 4, 2, 3, 2).transpose(0, 1, 3, 2, 4).reshape(1, 4, 3, 4)
+    want = np.asarray(jb.boundary_maps_from_s2d_labels(s2d, 3, bg_ilm=False))
+    got = tb.boundary_maps_from_s2d_labels(torch.from_numpy(s2d), 3, bg_ilm=False)
+    assert np.array_equal(got.numpy(), want) and 254 in want
+    assert torch.equal(got, tb.boundary_maps_from_labels(torch.from_numpy(lab), 3, bg_ilm=False))
+
+
+def test_s2d_map_layouts_match_jax():
+    rng = np.random.default_rng(12)
+    m = rng.integers(0, 256, (2, 3, 5, 4, 4), dtype=np.uint8)
+    for name in ("s2d_maps_to_image", "s2d_maps_to_transposed"):
+        want = np.asarray(getattr(jb, name)(m))
+        got = getattr(tb, name)(torch.from_numpy(m)).numpy()
+        assert np.array_equal(got, want), name

@@ -118,7 +118,7 @@ def test_cuda_backend_refuses_cpu_tensors():
 
 
 def test_kernel_build_is_deferred_and_raises_without_nvcc(monkeypatch, tmp_path):
-    assert _build.kernel_names() == ["minpath"]
+    assert _build.kernel_names() == ["minpath", "s2d_enc_pair"]
     path = _build.library_path("minpath")
     assert path.parent == REPO / "build" / "torch_kernels"
     assert path.name.startswith("libminpath_") and path.suffix == ".so"

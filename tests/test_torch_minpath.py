@@ -139,3 +139,54 @@ def test_dispatch_on_cpu():
         tm.delineate(maps, backend="xla")
     with pytest.raises(ValueError, match="tie_parity"):
         tm.delineate_reference(maps, tie_parity="heap")
+
+
+def _to_s2d(maps_img):
+    """Image maps (B, M, H, W) -> s2d maps (B, M, H/2, W/2, 4)."""
+    b, m, h, w = maps_img.shape
+    return (
+        maps_img.reshape(b, m, h // 2, 2, w // 2, 2)
+        .transpose(0, 1, 2, 4, 3, 5)
+        .reshape(b, m, h // 2, w // 2, 4)
+    )
+
+
+@pytest.mark.parametrize("tie_parity", ["exact", "fast"])
+def test_s2d_reference_matches_pallas_s2d_interpret(tie_parity):
+    from oct_image_segmentation_models_tpu.ops.minpath_pallas import (
+        delineate_pallas_s2d,
+    )
+
+    rng = np.random.default_rng(7)
+    for b, m_n, h, w, g in [(2, 3, 16, 12, 1), (1, 2, 32, 20, 2)]:
+        maps = rng.integers(0, 256, (b, m_n, h, w), dtype=np.uint8)
+        maps[0, 0] = _ridge_map(w, h, _smooth_rows(rng, w, h)).T  # a tie-rich map
+        s2d = _to_s2d(maps)
+        want = np.asarray(
+            delineate_pallas_s2d(s2d, max_grad=g, interpret=True, tie_parity=tie_parity)
+        )
+        got = tm.delineate_s2d_reference(
+            torch.from_numpy(s2d), max_grad=g, tie_parity=tie_parity
+        )
+        assert got.dtype == torch.int32 and got.shape == (b, m_n, w)
+        assert np.array_equal(got.numpy(), want)
+        # The same rows as the plain DP on the transposed image maps.
+        plain = tm.delineate_reference(
+            torch.from_numpy(np.swapaxes(maps, -1, -2).copy()),
+            max_grad=g,
+            tie_parity=tie_parity,
+        )
+        assert torch.equal(got, plain)
+
+
+def test_s2d_dispatch_on_cpu():
+    from oct_image_segmentation_models_torch.ops.minpath_cuda import delineate_cuda_s2d
+
+    s2d = torch.from_numpy(_to_s2d(np.swapaxes(_family(3, "plateau"), -1, -2).copy()))
+    ref = tm.delineate_s2d_reference(s2d)
+    assert torch.equal(tm.delineate_s2d(s2d), ref)  # "auto" on a CPU tensor
+    assert torch.equal(tm.delineate_s2d(s2d, backend="reference"), ref)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tm.delineate_s2d(s2d, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        delineate_cuda_s2d(s2d)

@@ -4,8 +4,10 @@ The model is the goldens' (tests/test_goldens.py: start_neurons=4,
 pool_layers=3, 64x96, ``PRNGKey(1234)``); its Flax variables cross into
 the port through ``state_dict_from_flax``. Every integer key of
 ``pipeline_golden.json`` (exact ties), ``fused_fast_golden.json`` (fast
-ties, BN-folded forward) and ``streaming_golden.json`` (10 B-scans, batch
-4) must match exactly; ``probs_mean`` within the goldens' own 2e-6.
+ties; JAX made it through the s2d labels forward, and the port meets it
+through that forward and through the BN-folded one) and
+``streaming_golden.json`` (10 B-scans, batch 4, the s2d path) must match
+exactly; ``probs_mean`` within the goldens' own 2e-6.
 """
 
 import functools
@@ -23,6 +25,7 @@ from oct_image_segmentation_models_torch.common.model_io import (
     state_dict_from_flax,
 )
 from oct_image_segmentation_models_torch.models import get_model_class
+from oct_image_segmentation_models_torch.models.unet import fold_batchnorm
 from oct_image_segmentation_models_torch.ops import boundary as tb
 from oct_image_segmentation_models_torch.ops.inference import (
     make_fused_pipeline,
@@ -107,10 +110,8 @@ def test_pipeline_golden_exact_and_fast_ties():
 def test_fused_fast_golden_folded_forward():
     golden = _golden("fused_fast_golden.json")
     container, module = _port_model()
-    forward, kind = select_optimized_forward(module)
-    assert kind == "folded"
     pipeline = make_fused_pipeline(
-        forward,
+        fold_batchnorm(module),
         container.get_preprocess_input_fn(),
         minpath_tie_parity="fast",
         device="cpu",
@@ -121,6 +122,61 @@ def test_fused_fast_golden_folded_forward():
     assert rows.numpy().tolist() == golden["delineations"]
 
 
+def test_fused_fast_golden_s2d_forward():
+    golden = _golden("fused_fast_golden.json")
+    container, module = _port_model()
+    labels_fn, kind = select_optimized_forward(module)
+    assert kind == "s2d"  # the goldens' config is s2d-eligible, as in JAX
+    pipeline = make_fused_pipeline(
+        None,
+        container.get_preprocess_input_fn(),
+        minpath_tie_parity="fast",
+        labels_apply_fn=labels_fn,
+        num_classes=C,
+        device="cpu",
+    )
+    labels, maps, rows = pipeline(_images(4, 42))
+    assert labels.shape == (4, H, W) and labels.dtype == torch.uint8
+    assert maps.shape == (4, C - 1, H, W) and rows.dtype == torch.uint16
+    assert int(labels.to(torch.int64).sum()) == golden["labels_sum"]
+    assert int(maps.to(torch.int64).sum()) == golden["maps_sum"]
+    assert rows.numpy().tolist() == golden["delineations"]
+    # The s2d tail gives what the probability tail gives on the same labels.
+    want_maps = tb.boundary_maps_from_labels(labels, C)
+    assert torch.equal(maps, want_maps)
+    _, no_maps, no_rows = make_fused_pipeline(
+        None,
+        container.get_preprocess_input_fn(),
+        labels_apply_fn=labels_fn,
+        num_classes=C,
+        return_maps=False,
+        with_graph_search=False,
+        device="cpu",
+    )(_images(1, 42))
+    assert no_maps is None and no_rows is None
+
+
+def test_selector_and_labels_fn_rejections():
+    container, module = _port_model()
+    labels_fn, _ = select_optimized_forward(module)
+    with pytest.raises(ValueError, match="requires num_classes"):
+        make_fused_pipeline(
+            None, container.get_preprocess_input_fn(), labels_apply_fn=labels_fn,
+            device="cpu",
+        )
+    # A U-Net the s2d transform does not take (odd conv_layers) gets the
+    # BN-folded forward.
+    odd = get_model_class("unet")(
+        input_channels=1, num_classes=C, image_height=H, image_width=W,
+        start_neurons=4, pool_layers=3, conv_layers=1,
+    ).build_model(device="cpu")
+    forward, kind = select_optimized_forward(odd)
+    assert kind == "folded" and not forward.use_bn
+    assert select_optimized_forward(odd, optimize=False) == (odd, "parity")
+    with pytest.raises(ValueError, match="float32"):
+        select_optimized_forward(module, compute_dtype="bfloat16")
+
+
 def test_streaming_golden():
     golden = _golden("streaming_golden.json")
     container, module = _port_model()
@@ -128,6 +184,7 @@ def test_streaming_golden():
     seg = VolumeSegmenter(
         LoadedModel("unet", module, config), config, batch_size=4, device="cpu"
     )
+    assert seg.kind == "s2d"  # VolumeSegmenter's defaults, as in JAX
     labels, rows = seg.segment_volume(_images(10, 3))  # 2 full + remainder
     assert labels.shape == (10, H, W) and labels.dtype == np.uint8
     assert rows.shape == (10, C - 1, W) and rows.dtype == np.uint16
