@@ -193,6 +193,16 @@ def s2d_maps_to_image(m: torch.Tensor) -> torch.Tensor:
     return m.permute(0, 1, 2, 4, 3, 5).reshape(B, M, 2 * Hb, 2 * Wb)
 
 
+def image_maps_to_s2d(m: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`s2d_maps_to_image`: image maps ``(B, M, H, W)``
+    -> contiguous s2d-form maps ``(B, M, H/2, W/2, 4)``, channels
+    ``(q_h, q_w)``."""
+    B, M, H, W = m.shape
+    m = m.reshape(B, M, H // 2, 2, W // 2, 2)
+    # (b, m, i, qh, j, qw) -> (b, m, i, j, qh, qw)
+    return m.permute(0, 1, 2, 4, 3, 5).reshape(B, M, H // 2, W // 2, 4).contiguous()
+
+
 def s2d_maps_to_transposed(m: torch.Tensor) -> torch.Tensor:
     """s2d-form maps -> the min-path's ``(B, M, W, H)`` orientation."""
     B, M, Hb, Wb, _ = m.shape

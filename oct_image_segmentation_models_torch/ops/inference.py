@@ -32,16 +32,15 @@ from .s2d_unet import d2s, maybe_build_s2d_apply
 def select_optimized_forward(
     module: torch.nn.Module,
     compute_dtype: str = "float32",
-    s2d_output: str = "labels_s2d",
     optimize: bool = True,
 ):
     """Pick the inference forward -> ``(forward_module, kind)``, in the JAX
     selection order.
 
     ``kind`` is ``"s2d"`` for a U-Net the s2d transform takes (the forward
-    is an :class:`.s2d_unet.S2DUNet` with output ``s2d_output``; with the
-    default ``"labels_s2d"`` pass it to :func:`make_fused_pipeline`'s
-    ``labels_apply_fn``), ``"folded"`` for another U-Net (BN folded into
+    is an :class:`.s2d_unet.S2DUNet` with output ``"labels_s2d"``; pass it
+    to :func:`make_fused_pipeline`'s ``labels_apply_fn``), ``"folded"`` for
+    another U-Net (BN folded into
     the convs), and ``"parity"`` without ``optimize`` or for another
     model (the module as given). Only float32 is ported, so another
     ``compute_dtype`` raises (the bfloat16 s2d forward is ROADMAP A13)."""
@@ -51,7 +50,7 @@ def select_optimized_forward(
             "float32 only"
         )
     if optimize:
-        s2d_fn, _div = maybe_build_s2d_apply(module, output=s2d_output)
+        s2d_fn, _div = maybe_build_s2d_apply(module, output="labels_s2d")
         if s2d_fn is not None:
             return s2d_fn, "s2d"
         if isinstance(module, UNetModule):

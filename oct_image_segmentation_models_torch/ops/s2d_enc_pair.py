@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .s2d_unet import _conv_block_space, _mask_shifted, phase_max_pool
+from .s2d_unet import _enc_pair_nchw
 
 __all__ = ["enc_pair_supported", "fused_enc_pair", "fused_enc_pair_reference"]
 
@@ -65,15 +65,20 @@ def check_enc_pair_args(x, w1, b1, w2, b2) -> None:
 
 
 def fused_enc_pair_reference(x, w1, b1, w2, b2):
-    """The unfused chain: conv U->S + ReLU + shifted-edge masks, conv S->U
-    + ReLU, then the phase max-pool. Returns ``(y2, pooled)``."""
+    """The unfused chain of the s2d forward (conv U->S + ReLU + shifted-edge
+    masks, conv S->U + ReLU, then the phase max-pool), run on its NCHW ops
+    with one permute in and one out. Returns ``(y2, pooled)``."""
     check_enc_pair_args(x, w1, b1, w2, b2)
-    _, nh, nw, _ = x.shape
-    y1 = _conv_block_space(x, w1, b1, (-1, 0), (-1, 0), nh + 1, nw + 1)
-    y1 = _mask_shifted(torch.relu(y1))
-    y2 = torch.relu(_conv_block_space(y1, w2, b2, (0, 1), (0, 1), nh, nw))
-    y2 = y2.contiguous()
-    return y2, phase_max_pool(y2)
+
+    def nchw(t, *dims):
+        # Contiguous, as the forward holds them: a permuted view is
+        # channels-last to PyTorch, a layout the forward never runs.
+        return t.permute(*dims).contiguous()
+
+    y2, pooled = _enc_pair_nchw(
+        nchw(x, 0, 3, 1, 2), nchw(w1, 3, 2, 0, 1), b1, nchw(w2, 3, 2, 0, 1), b2
+    )
+    return y2.permute(0, 2, 3, 1).contiguous(), pooled.permute(0, 2, 3, 1).contiguous()
 
 
 def fused_enc_pair(x, w1, b1, w2, b2):

@@ -315,6 +315,24 @@ def _conv_nchw(x, w_oihw, bias, pads):
     return F.conv2d(x, w_oihw, bias)
 
 
+def _phase_max_pool_nchw(x: torch.Tensor) -> torch.Tensor:
+    """:func:`phase_max_pool` in NCHW: (B, 4C, Hb, Wb) -> (B, C, Hb, Wb)."""
+    B, C4, hb, wb = x.shape
+    return x.reshape(B, 4, C4 // 4, hb, wb).amax(dim=1)
+
+
+def _enc_pair_nchw(x, w1_oihw, b1, w2_oihw, b2):
+    """One standard s2d encoder level in NCHW, unfused: conv U -> S (block
+    taps e in {-1, 0}) + ReLU + shifted-edge masks, conv S -> U (e in
+    {0, 1}) + ReLU, phase max-pool. Returns ``(y2, pooled)``."""
+    _, _, nh, nw = x.shape
+    pads1 = _conv_pads(nh, nw, (-1, 0), (-1, 0), nh + 1, nw + 1)
+    y1 = _mask_shifted_nchw(F.relu(_conv_nchw(x, w1_oihw, b1, pads1)))
+    pads2 = _conv_pads(nh + 1, nw + 1, (0, 1), (0, 1), nh, nw)
+    y2 = F.relu(_conv_nchw(y1, w2_oihw, b2, pads2))
+    return y2, _phase_max_pool_nchw(y2)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -568,8 +586,7 @@ class S2DUNet(nn.Module):
                 for conv in self.enc_plan[L]:
                     x = self._run(x, conv)
                 skips.append(x)  # s2d unshifted form
-                B, C4, hb, wb = x.shape
-                x = x.reshape(B, 4, C4 // 4, hb, wb).amax(dim=1)
+                x = _phase_max_pool_nchw(x)
             else:
                 for conv in self.enc_plan[L]:
                     x = self._run(x, conv)

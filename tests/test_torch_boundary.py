@@ -182,3 +182,13 @@ def test_s2d_map_layouts_match_jax():
         want = np.asarray(getattr(jb, name)(m))
         got = getattr(tb, name)(torch.from_numpy(m)).numpy()
         assert np.array_equal(got, want), name
+
+
+def test_image_maps_to_s2d_inverts_s2d_maps_to_image():
+    rng = np.random.default_rng(13)
+    m = torch.from_numpy(rng.integers(0, 256, (2, 3, 5, 4, 4), dtype=np.uint8))
+    img = tb.s2d_maps_to_image(m)
+    back = tb.image_maps_to_s2d(img)
+    assert back.is_contiguous() and torch.equal(back, m)
+    # Map value at (row i, column j) sits at [i // 2, j // 2, 2 (i % 2) + j % 2].
+    assert int(back[1, 2, 3, 1, 2]) == int(img[1, 2, 7, 2])

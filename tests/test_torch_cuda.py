@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from oct_image_segmentation_models_torch.ops.boundary import image_maps_to_s2d
 from oct_image_segmentation_models_torch.ops.minpath import (
     delineate_reference,
     delineate_s2d_reference,
@@ -69,24 +70,13 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         delineate_cuda(torch.zeros((1, 8, 4), dtype=torch.uint8, device=cuda).mT)
 
 
-def _s2d(maps_img):
-    """(B, M, H, W) -> (B, M, H/2, W/2, 4) with channels (q_h, q_w)."""
-    b, m, h, w = maps_img.shape
-    return (
-        maps_img.reshape(b, m, h // 2, 2, w // 2, 2)
-        .permute(0, 1, 2, 4, 3, 5)
-        .reshape(b, m, h // 2, w // 2, 4)
-        .contiguous()
-    )
-
-
 @pytest.mark.parametrize("tie_parity", ["exact", "fast"])
 @pytest.mark.parametrize("b,m,h,w,g", [(1, 3, 12, 40, 1), (2, 1, 96, 64, 2), (1, 1, 600, 128, 1)])
 def test_s2d_kernel_matches_reference(cuda, b, m, h, w, g, tie_parity):
     rng = np.random.default_rng(h + w)
     b *= 3  # the sparse, ridge and random families of _maps
     maps_t = torch.from_numpy(_maps(rng, b * m // 3, w, h)).to(cuda)  # (N, W, H)
-    s2d = _s2d(maps_t.transpose(-1, -2).reshape(b, m, h, w))
+    s2d = image_maps_to_s2d(maps_t.transpose(-1, -2).reshape(b, m, h, w))
     before = delineate_cuda_s2d.launches, delineate_cuda.launches
     got = delineate_cuda_s2d(s2d, max_grad=g, tie_parity=tie_parity)
     torch.cuda.synchronize()

@@ -9,6 +9,7 @@ import torch
 from oct_image_segmentation_models_tpu.ops import minpath as jm
 from oct_image_segmentation_models_tpu.ops.minpath_pallas import delineate_pallas
 from oct_image_segmentation_models_torch.ops import minpath as tm
+from oct_image_segmentation_models_torch.ops.boundary import image_maps_to_s2d
 from oct_image_segmentation_models_torch.ops.minpath_cuda import delineate_cuda
 
 from oracle_minpath import dijkstra_delineate
@@ -142,13 +143,8 @@ def test_dispatch_on_cpu():
 
 
 def _to_s2d(maps_img):
-    """Image maps (B, M, H, W) -> s2d maps (B, M, H/2, W/2, 4)."""
-    b, m, h, w = maps_img.shape
-    return (
-        maps_img.reshape(b, m, h // 2, 2, w // 2, 2)
-        .transpose(0, 1, 2, 4, 3, 5)
-        .reshape(b, m, h // 2, w // 2, 4)
-    )
+    """Image maps (B, M, H, W) -> s2d maps (B, M, H/2, W/2, 4), numpy."""
+    return image_maps_to_s2d(torch.from_numpy(maps_img)).numpy()
 
 
 @pytest.mark.parametrize("tie_parity", ["exact", "fast"])
