@@ -12,12 +12,16 @@ Phases, each of which raises on failure:
 2. Kernel parity, each kernel against its plain PyTorch version on the
    same CUDA tensors:
    - ``minpath_dp`` (B1), bit for bit, both tie modes, at the flagship
-     shape (24 maps x 1024 columns x 512 rows) and at odd ones;
+     shape (24 maps x 1024 columns x 512 rows) and at odd ones: tie-heavy
+     maps (constant maps, wide 255 plateaus), H = 1024, H not a power of
+     two, max_grad 2, and both choice stores of the kernel (bit planes in
+     shared memory, the device scratch), each hit at least once;
    - ``minpath_dp_s2d`` (B2) on s2d maps, bit for bit against its plain
      version and against B1 on the transposed maps, both tie modes, at
-     (8, 3, 256, 512, 4) and at odd ones;
+     (8, 3, 256, 512, 4) and at odd ones, the same variants included;
    - ``s2d_enc_pair`` (B3) within ``PAIR_ATOL`` at the flagship level-1
-     shape and two small ones; ``pooled`` exactly the phase max of ``y2``.
+     shape, a ragged tile, 4C = 512 and two small ones; ``pooled`` exactly
+     the phase max of ``y2``.
 3. The paths at full width, on the bench's U-Net (start_neurons=32,
    pool_layers=4, conv_layers=2, 4 classes, 512x1024 B-scans, batch 8,
    random weights from a seeded ``torch.Generator``), each driven with the
@@ -32,7 +36,12 @@ Phases, each of which raises on failure:
    - the s2d forward with fused encoder pairs, one batch through B3.
 4. Times, with CUDA events (median of several runs after warm-up): both
    pipelines per batch and their stages, each kernel per call beside its
-   plain version, its yardstick and its bound.
+   plain version, its yardstick and its bound (B3: on the tensor cores,
+   the route it takes, and on the float32 CUDA cores), the min-path per
+   column.
+
+Each path's run also prints which variant of each kernel it took (the
+min-path choice store, the encoder pair's tile).
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -61,6 +70,7 @@ N_MAPS = BATCH * (NUM_CLASSES - 1)  # 24 maps per batch
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores (TF32 is off)
+TF32_FLOPS_PER_S = 495e12  # dense TF32 on the tensor cores
 # The card's float32 forward (cuDNN, TF32 off) against the CPU's: both
 # float32, summed in another order over ~20 convs of depth up to 4608.
 PROB_ATOL = 1e-4
@@ -110,9 +120,20 @@ def smooth_rows(rng, n, w, h, max_step, margin=2):
 
 def synthetic_maps(rng, family: str, n: int, w: int, h: int, max_step=2):
     """Min-path test maps ``(n, w, h)`` uint8: one-row ridges, 2-4-row
-    plateau ridges (zero-weight-edge races), or sparse random 0/255."""
+    plateau ridges (zero-weight-edge races), sparse random 0/255, constant
+    maps (0, 255 and 128 in turn: every candidate ties), or 255 bands of
+    1-8 rows."""
     if family == "sparse":
         return (rng.random((n, w, h)) < 0.15).astype(np.uint8) * 255
+    if family == "constant":
+        values = np.array([0, 255, 128], np.uint8)[np.arange(n) % 3]
+        return np.broadcast_to(values[:, None, None], (n, w, h)).copy()
+    if family == "bands":
+        rows = smooth_rows(rng, n, w, h - 8, max_step)
+        width = rng.integers(1, 9, size=(n, 1))
+        r = np.arange(h)[None, None, :]
+        band = (r >= rows[..., None]) & (r < (rows + width)[..., None])
+        return band.astype(np.uint8) * 255
     maps = np.zeros((n, w, h), np.uint8)
     rows = smooth_rows(rng, n, w, h, max_step)
     maps[np.arange(n)[:, None], np.arange(w)[None, :], rows] = 255
@@ -164,7 +185,10 @@ def phase_environment() -> dict:
 def phase_kernel_parity(rng) -> dict:
     """The CUDA kernel against the plain version, bit for bit."""
     from oct_image_segmentation_models_torch.ops.minpath import delineate_reference
-    from oct_image_segmentation_models_torch.ops.minpath_cuda import delineate_cuda
+    from oct_image_segmentation_models_torch.ops.minpath_cuda import (
+        choice_store,
+        delineate_cuda,
+    )
 
     cases = [
         (family, N_MAPS, W, H, 1, 2) for family in ("ridge", "plateau", "sparse")
@@ -176,10 +200,22 @@ def phase_kernel_parity(rng) -> dict:
         ("plateau", 6, 128, 64, 2, 3),
         ("ridge", 1, W, H, 1, 2),
         ("sparse", 25, 128, 64, 1, 2),
+        ("constant", 3, 96, 40, 1, 2),
+        ("constant", 3, 96, 40, 2, 2),
+        ("bands", 5, 256, 200, 1, 2),
+        ("bands", 5, 256, 200, 2, 2),
+        ("ridge", 5, 256, 1024, 1, 2),  # H = 1024, shared-memory choices
+        ("bands", 3, 640, 1024, 1, 2),  # H = 1024, device-scratch choices
+        ("plateau", 3, 600, 1024, 2, 3),  # max_grad 2, device scratch
+        ("ridge", 4, 128, 64, 4, 4),  # max_grad 4: the run-time max_grad code
+        ("bands", 3, 96, 40, 30, 4),  # max_grad 30, the largest
     ]
+    stores = set()
     max_err = 0
     for family, n, w, h, g, step in cases:
         maps = torch.from_numpy(synthetic_maps(rng, family, n, w, h, step)).cuda()
+        store = choice_store(w, h, g)
+        stores.add(store)
         for tie in ("exact", "fast"):
             got = delineate_cuda(maps, max_grad=g, tie_parity=tie)
             want = delineate_reference(maps, max_grad=g, tie_parity=tie)
@@ -187,8 +223,8 @@ def phase_kernel_parity(rng) -> dict:
             err = int((got - want).abs().max())
             max_err = max(max_err, err)
             print(
-                f"kernel parity {family:7s} N={n:2d} W={w:4d} H={h:3d} g={g} "
-                f"{tie:5s}: max |diff| {err}"
+                f"kernel parity {family:8s} N={n:2d} W={w:4d} H={h:4d} g={g} "
+                f"{tie:5s} ({store} choices): max |diff| {err}"
             )
             if not torch.equal(got, want):
                 raise AssertionError(
@@ -196,6 +232,8 @@ def phase_kernel_parity(rng) -> dict:
                     f"{family} N={n} W={w} H={h} g={g} {tie}, "
                     f"{int((got != want).sum())} rows differ"
                 )
+    if stores != {"shared", "scratch"}:
+        raise AssertionError(f"B1 parity hit only the {stores} choice store")
     return {"max_abs_err": max_err, "cases": len(cases) * 2}
 
 
@@ -210,6 +248,7 @@ def phase_s2d_kernel_parity(rng) -> dict:
         delineate_s2d_reference,
     )
     from oct_image_segmentation_models_torch.ops.minpath_cuda import (
+        choice_store,
         delineate_cuda,
         delineate_cuda_s2d,
     )
@@ -222,11 +261,19 @@ def phase_s2d_kernel_parity(rng) -> dict:
         ("plateau", 2, 3, 128, 64, 2, 3),
         ("ridge", 1, 1, W, H, 1, 2),
         ("sparse", 25, 1, 128, 64, 1, 2),
+        ("constant", 1, 3, 96, 40, 1, 2),
+        ("bands", 1, 5, 256, 200, 2, 2),
+        ("ridge", 1, 5, 256, 1024, 1, 2),  # H = 1024, shared-memory choices
+        ("bands", 1, 3, 640, 1024, 1, 2),  # device-scratch choices
+        ("ridge", 1, 4, 128, 64, 4, 4),  # max_grad 4: the run-time max_grad code
     ]
+    stores = set()
     max_err = 0
     for family, b, mm, w, h, g, step in cases:
         maps_t = torch.from_numpy(synthetic_maps(rng, family, b * mm, w, h, step)).cuda()
         s2d = image_maps_to_s2d(maps_t.transpose(-1, -2).reshape(b, mm, h, w))
+        store = choice_store(w, h, g)
+        stores.add(store)
         for tie in ("exact", "fast"):
             got = delineate_cuda_s2d(s2d, max_grad=g, tie_parity=tie)
             want = delineate_s2d_reference(s2d, max_grad=g, tie_parity=tie)
@@ -237,8 +284,8 @@ def phase_s2d_kernel_parity(rng) -> dict:
             err = int((got - want).abs().max())
             max_err = max(max_err, err)
             print(
-                f"s2d kernel parity {family:7s} B={b:2d} M={mm} W={w:4d} H={h:3d} "
-                f"g={g} {tie:5s}: max |diff| {err}, vs B1 "
+                f"s2d kernel parity {family:8s} B={b:2d} M={mm} W={w:4d} H={h:4d} "
+                f"g={g} {tie:5s} ({store} choices): max |diff| {err}, vs B1 "
                 f"{int((got - b1).abs().max())}"
             )
             if not (torch.equal(got, want) and torch.equal(got, b1)):
@@ -247,6 +294,8 @@ def phase_s2d_kernel_parity(rng) -> dict:
                     f"H={h} g={g} {tie}, {int((got != want).sum())} rows differ "
                     f"from the plain version, {int((got != b1).sum())} from B1"
                 )
+    if stores != {"shared", "scratch"}:
+        raise AssertionError(f"B2 parity hit only the {stores} choice store")
     return {"max_abs_err": max_err, "cases": len(cases) * 2}
 
 
@@ -274,15 +323,19 @@ def phase_enc_pair_parity(rng) -> dict:
         fused_enc_pair_reference,
     )
     from oct_image_segmentation_models_torch.ops.s2d_enc_pair_cuda import (
+        enc_pair_tile,
         fused_enc_pair_cuda,
     )
     from oct_image_segmentation_models_torch.ops.s2d_unet import phase_max_pool
 
     cases = [
         (BATCH, H // 4, W // 4, 128, 256),  # flagship level 1
+        (2, 13, 37, 128, 256),  # ragged: nh, nw not multiples of the tile
+        (2, 10, 20, 256, 512),  # 4C = 512, the second tile
         (2, 6, 16, 128, 128),  # nh = 6: the gate's tr = 2
         (2, 8, 12, 8, 64),  # 4Cin = 8, 4C = 64, called directly
     ]
+    tiles = set()
     max_err = 0.0
     flagship = None
     for shape in cases:
@@ -295,9 +348,11 @@ def phase_enc_pair_parity(rng) -> dict:
         pool_err = float((pooled - want_pool).abs().max())
         exact_pool = torch.equal(pooled, phase_max_pool(y2))
         max_err = max(max_err, err, pool_err)
+        tile = enc_pair_tile(shape[4])
+        tiles.add(tile)
         print(
             f"enc pair parity B={shape[0]} nh={shape[1]} nw={shape[2]} "
-            f"4Cin={shape[3]} 4C={shape[4]}: y2 max |diff| {err:.3e}, pooled "
+            f"4Cin={shape[3]} 4C={shape[4]} (tile {tile}): y2 max |diff| {err:.3e}, pooled "
             f"{pool_err:.3e} (tolerance {PAIR_ATOL:g}); pooled == phase max of "
             f"y2: {exact_pool}; |y2| max {float(want_y2.abs().max()):.3f}"
         )
@@ -307,6 +362,8 @@ def phase_enc_pair_parity(rng) -> dict:
             raise AssertionError("pooled is not the phase max of the kernel's y2")
         if flagship is None:
             flagship = args
+    if len(tiles) < 2:
+        raise AssertionError(f"B3 parity hit only the {tiles} tile")
     return {"max_abs_err": max_err, "flagship_args": flagship}
 
 
@@ -344,13 +401,31 @@ def kernel_counts() -> dict:
     }
 
 
+def _variant_counts(fn) -> dict:
+    """The launches of a kernel split by variant: the min-path choice
+    store or the encoder pair's tile."""
+    return getattr(fn, "store_launches", None) or fn.tile_launches
+
+
 def reset_counts() -> None:
     for fn in kernel_counts().values():
         fn.launches = 0
+        counts = _variant_counts(fn)
+        for key in counts:
+            counts[key] = 0
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_counts().items()}
+
+
+def read_variants() -> dict:
+    """The variants that launched since the last reset, with their counts."""
+    return {
+        name: {k: v for k, v in _variant_counts(fn).items() if v}
+        for name, fn in kernel_counts().items()
+        if fn.launches
+    }
 
 
 def check_rows(tie: str, labels: np.ndarray, rows: np.ndarray) -> None:
@@ -419,7 +494,8 @@ def phase_s2d_slice(model, volume: np.ndarray) -> dict:
     counts = read_counts()
     print(
         f"s2d path (kind {seg_fast.kind}): {VOLUME} B-scans fast + {BATCH} exact in "
-        f"{first_run_s:.2f} s (first call), launches {counts}"
+        f"{first_run_s:.2f} s (first call), launches {counts}, variants "
+        f"{read_variants()}"
     )
     if counts["minpath_dp_s2d"] < 1:
         raise AssertionError("the s2d path never launched the s2d min-path kernel")
@@ -469,7 +545,10 @@ def phase_folded(model, volume: np.ndarray) -> dict:
     labels_x, rows_x = run_volume(pipes["exact"], volume[:BATCH])
     torch.cuda.synchronize()
     counts = read_counts()
-    print(f"folded path: {VOLUME} B-scans fast + {BATCH} exact, launches {counts}")
+    print(
+        f"folded path: {VOLUME} B-scans fast + {BATCH} exact, launches {counts}, "
+        f"variants {read_variants()}"
+    )
     if counts["minpath_dp"] < 1:
         raise AssertionError("the folded path never launched the CUDA min-path kernel")
     if counts["minpath_dp_s2d"] or counts["s2d_enc_pair"]:
@@ -523,7 +602,7 @@ def phase_fused(model, volume: np.ndarray, s2d_labels: np.ndarray) -> dict:
     labels, _, rows = pipe(batch)
     torch.cuda.synchronize()
     counts = read_counts()
-    print(f"fused-pair path: one batch, launches {counts}")
+    print(f"fused-pair path: one batch, launches {counts}, variants {read_variants()}")
     if counts["s2d_enc_pair"] != 1 or counts["minpath_dp_s2d"] != 1:
         raise AssertionError(f"expected one B3 and one B2 launch per batch: {counts}")
     agree = float((labels.cpu().numpy() == s2d_labels[:BATCH]).mean())
@@ -585,12 +664,15 @@ def profile_pipeline(pipe, batch, calls: int = 3) -> dict:
     }
 
 
-def enc_pair_bound_ms(b, nh, nw, cin4, c4) -> tuple:
+def enc_pair_bound_ms(b, nh, nw, cin4, c4) -> dict:
     """Least time for the encoder pair on these shapes: the dense
     block-space FLOPs (2 per multiply-add, both convs, y1 with its
-    (nh+1, nw+1) shifted grid) over the float32 rate, against the bytes of
-    x, the weights and biases read once and y2 and pooled written once over
-    HBM bandwidth. Returns ``(ms, "bytes" | "operations", flop)``."""
+    (nh+1, nw+1) shifted grid) against the bytes of x, the weights and
+    biases read once and y2 and pooled written once over HBM bandwidth.
+    On the route the kernel takes, the tensor cores in 3xTF32, each
+    multiply-add is three TF32 products at the TF32 rate; on the float32
+    CUDA cores, one at the float32 rate. Returns ``{"ms", "by", "flop",
+    "fp32_ms", "fp32_by"}``, ``ms`` and ``by`` for the tensor cores."""
     flop = 2 * b * (
         (nh + 1) * (nw + 1) * 4 * cin4 * c4 + nh * nw * 4 * c4 * c4
     )
@@ -602,11 +684,14 @@ def enc_pair_bound_ms(b, nh, nw, cin4, c4) -> tuple:
         + b * nh * nw * c4
         + b * nh * nw * c4 // 4
     )
-    t_ops = flop / FP32_FLOPS_PER_S * 1e3
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", flop
-    return t_ops, "operations", flop
+
+    def bound(t_ops):
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    ms, by = bound(3 * flop / TF32_FLOPS_PER_S * 1e3)
+    fp32_ms, fp32_by = bound(flop / FP32_FLOPS_PER_S * 1e3)
+    return {"ms": ms, "by": by, "flop": flop, "fp32_ms": fp32_ms, "fp32_by": fp32_by}
 
 
 def forward_flop(fn, x) -> int:
@@ -635,6 +720,7 @@ def phase_times(model, s2d: dict, folded: dict, fused: dict, pair_args) -> dict:
         fused_enc_pair_reference,
     )
     from oct_image_segmentation_models_torch.ops.s2d_enc_pair_cuda import (
+        enc_pair_tile,
         fused_enc_pair_cuda,
     )
     from oct_image_segmentation_models_torch.ops.s2d_unet import build_s2d_apply, d2s
@@ -704,13 +790,14 @@ def phase_times(model, s2d: dict, folded: dict, fused: dict, pair_args) -> dict:
         n_maps, w = maps_t.shape[0] * maps_t.shape[1], maps_t.shape[2]
         for tie in ("fast", "exact"):
             bound, by = kernel_bound_ms(n_maps, w, H, 1, tie == "exact")
-            # B1 on the folded path's maps.
+            # B1 on the folded path's maps. The plain versions take seconds
+            # a call (the DP column by column in PyTorch): one call each.
             out[f"b1_{tie}_ms"] = time_cuda(
                 lambda: delineate_cuda(maps_t, tie_parity=tie), iters=10
             )
             out[f"b1_plain_{tie}_ms"] = time_cuda(
                 lambda: delineate_reference(maps_t, tie_parity=tie),
-                iters=1, reps=3, warmup=1,
+                iters=1, reps=1, warmup=0,
             )
             # B2 on the s2d path's maps, and its yardstick: transpose + B1.
             out[f"b2_{tie}_ms"] = time_cuda(
@@ -724,7 +811,7 @@ def phase_times(model, s2d: dict, folded: dict, fused: dict, pair_args) -> dict:
             )
             out[f"b2_plain_{tie}_ms"] = time_cuda(
                 lambda: delineate_s2d_reference(maps_s2d, tie_parity=tie),
-                iters=1, reps=3, warmup=1,
+                iters=1, reps=1, warmup=0,
             )
             out[f"minpath_bound_{tie}_ms"] = bound
             out[f"minpath_bound_{tie}_by"] = by
@@ -738,9 +825,12 @@ def phase_times(model, s2d: dict, folded: dict, fused: dict, pair_args) -> dict:
             lambda: fused_enc_pair_reference(*pair_args), iters=3
         )
         out["b3_shape"] = shape
-        bound, by, flop = enc_pair_bound_ms(*shape)
-        out["b3_bound_ms"], out["b3_bound_by"] = bound, by
-        out["b3_tflops"] = flop / 1e9 / out["b3_ms"]
+        out["b3_tile"] = enc_pair_tile(shape[4])
+        bound = enc_pair_bound_ms(*shape)
+        out["b3_bound_ms"], out["b3_bound_by"] = bound["ms"], bound["by"]
+        out["b3_bound_fp32_ms"] = bound["fp32_ms"]
+        out["b3_bound_fp32_by"] = bound["fp32_by"]
+        out["b3_tflops"] = bound["flop"] / 1e9 / out["b3_ms"]
     return out
 
 
@@ -827,8 +917,10 @@ def main(argv=None) -> int:
     for tie in ("fast", "exact"):
         print(
             f"[{card}] minpath {tie} at {N_MAPS}x{W}x{H}: B1 "
-            f"{times[f'b1_{tie}_ms']:.4f} ms (plain {times[f'b1_plain_{tie}_ms']:.1f}"
-            f" ms), B2 {times[f'b2_{tie}_ms']:.4f} ms (plain "
+            f"{times[f'b1_{tie}_ms']:.4f} ms = {times[f'b1_{tie}_ms'] / W * 1e3:.3f} "
+            f"us/column (plain {times[f'b1_plain_{tie}_ms']:.1f}"
+            f" ms), B2 {times[f'b2_{tie}_ms']:.4f} ms = "
+            f"{times[f'b2_{tie}_ms'] / W * 1e3:.3f} us/column (plain "
             f"{times[f'b2_plain_{tie}_ms']:.1f} ms, transpose + B1 "
             f"{times[f'b2_yardstick_{tie}_ms']:.4f} ms), bound "
             f"{times[f'minpath_bound_{tie}_ms']:.5f} ms "
@@ -836,10 +928,12 @@ def main(argv=None) -> int:
         )
     print(
         f"[{card}] s2d_enc_pair at x {times['b3_shape'][:4]}, 4C "
-        f"{times['b3_shape'][4]}: kernel "
+        f"{times['b3_shape'][4]} (tile {times['b3_tile']}): kernel "
         f"{times['b3_ms']:.3f} ms ({times['b3_tflops']:.2f} TFLOP/s), plain "
         f"version (the unfused cuDNN chain) {times['b3_plain_ms']:.3f} ms, bound "
-        f"{times['b3_bound_ms']:.3f} ms ({times['b3_bound_by']})"
+        f"{times['b3_bound_ms']:.3f} ms on the tensor cores in 3xTF32 "
+        f"({times['b3_bound_by']}), {times['b3_bound_fp32_ms']:.3f} ms on the "
+        f"float32 CUDA cores ({times['b3_bound_fp32_by']})"
     )
     minpath_src = "oct_image_segmentation_models_torch/csrc/minpath.cu"
     tpu_minpath = "oct_image_segmentation_models_tpu/ops/minpath_pallas.py"
@@ -858,21 +952,27 @@ def main(argv=None) -> int:
             plain_ms_exact=times[f"{key}_plain_exact_ms"],
             bound_ms_exact=times["minpath_bound_exact_ms"],
             bound_by_exact=times["minpath_bound_exact_by"],
+            us_per_column=times[f"{key}_fast_ms"] / W * 1e3,
+            us_per_column_exact=times[f"{key}_exact_ms"] / W * 1e3,
         )
         if key == "b2":
             line["transpose_then_b1_ms"] = times["b2_yardstick_fast_ms"]
             line["transpose_then_b1_ms_exact"] = times["b2_yardstick_exact_ms"]
         kernels.append(line)
-    kernels.append(
-        kernel_line(
-            "s2d_enc_pair",
-            "oct_image_segmentation_models_torch/csrc/s2d_enc_pair.cu",
-            "oct_image_segmentation_models_tpu/ops/s2d_pallas.py:153",
-            fused["launches"], parity_pair["max_abs_err"], times["b3_ms"],
-            times["b3_plain_ms"], times["b3_bound_ms"], times["b3_bound_by"],
-            times["b3_plain_ms"],
-        )
+    b3_line = kernel_line(
+        "s2d_enc_pair",
+        "oct_image_segmentation_models_torch/csrc/s2d_enc_pair.cu",
+        "oct_image_segmentation_models_tpu/ops/s2d_pallas.py:153",
+        fused["launches"], parity_pair["max_abs_err"], times["b3_ms"],
+        times["b3_plain_ms"], times["b3_bound_ms"], times["b3_bound_by"],
+        times["b3_plain_ms"],
     )
+    b3_line.update(
+        bound_ms_fp32_cuda_cores=times["b3_bound_fp32_ms"],
+        bound_by_fp32_cuda_cores=times["b3_bound_fp32_by"],
+        tile=times["b3_tile"],
+    )
+    kernels.append(b3_line)
     if args.out:
         record = {
             "card": card,

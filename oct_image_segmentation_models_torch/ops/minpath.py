@@ -30,6 +30,8 @@ place; :func:`delineate_s2d` dispatches between them.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _BIG = 2**30
@@ -145,16 +147,64 @@ def _shift_down(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([fill, x[..., :-k]], dim=-1)
 
 
-def _dense_rank(d_key: torch.Tensor, sub_key: torch.Tensor) -> torch.Tensor:
-    """Per-row rank of the lexicographic ``(d_key, sub_key)`` pairs.
+@functools.lru_cache(maxsize=None)
+def _network_stages(pad: int, device: torch.device) -> tuple:
+    """The bitonic network's stages over ``pad`` positions: per stage the
+    partner of each position t (t ^ j) and whether t keeps the smaller key
+    of the pair (the lower of an ascending pair or the upper of a
+    descending one)."""
+    t = torch.arange(pad, device=device)
+    stages = []
+    k = 2
+    while k <= pad:
+        j = k // 2
+        while j >= 1:
+            stages.append((t ^ j, ((t & j) == 0) == ((t & k) == 0)))
+            j //= 2
+        k *= 2
+    return tuple(stages)
 
-    The keys are unique per column (a predecessor's rank is unique and
-    the same predecessor reaches two rows only through edges of different
-    priority), so any sort gives the JAX bitonic network's ranks. Both
-    keys are non-negative int32, so one int64 key orders the pairs.
+
+def _bitonic_order(key: torch.Tensor) -> torch.Tensor:
+    """Rows of ``key`` (N, H) int64 in the order the JAX reference's
+    bitonic network leaves them: keys padded to a power of two with a key
+    above every real one, the network's compare-exchange stages with
+    strict comparisons, so that equal keys end where that network puts
+    them. Returns (N, H) row indices, position t holding the row of rank
+    t."""
+    n, h = key.shape
+    pad = 1 << max(0, (h - 1).bit_length())
+    if pad != h:
+        key = torch.cat([key, key.new_full((n, pad - h), (_BIG << 32) | _BIG)], dim=-1)
+    idx = torch.arange(pad, device=key.device).expand(n, pad)
+    for partner, keep_min in _network_stages(pad, key.device):
+        # Take the partner's key when it is strictly smaller (keep_min)
+        # or strictly larger: equal keys stay where they are.
+        other = key[:, partner]
+        take = torch.where(keep_min, other < key, other > key)
+        key = torch.where(take, other, key)
+        idx = torch.where(take, idx[:, partner], idx)
+    return idx[:, :h]
+
+
+def _dense_rank(d_key: torch.Tensor, sub_key: torch.Tensor) -> torch.Tensor:
+    """Per-row rank of the lexicographic ``(d_key, sub_key)`` pairs, as
+    the JAX reference's bitonic network ranks them.
+
+    The pairs are unique in most columns, and then any sort gives the
+    network's ranks. They are not unique in all: on zero-weight plateaus
+    two rows can take the same predecessor at the same effective priority
+    (``tests/test_torch_minpath.py`` finds such ties on its ``plateau`` and
+    ``sparse`` maps), and where the network orders the two otherwise than a
+    stable sort would, the delineated rows can differ. So a column batch
+    with a tie is ranked by the network itself (:func:`_bitonic_order`).
+    Both keys are non-negative int32, so one int64 key orders the pairs.
     """
     key = (d_key.to(torch.int64) << 32) | sub_key.to(torch.int64)
     order = torch.argsort(key, dim=-1, stable=True)
+    ordered = torch.gather(key, -1, order)
+    if bool((ordered[..., 1:] == ordered[..., :-1]).any()):
+        order = _bitonic_order(key)
     ranks = torch.arange(key.shape[-1], dtype=torch.int32, device=key.device)
     rank = torch.empty_like(d_key)
     rank.scatter_(-1, order, ranks.expand_as(order).contiguous())

@@ -10,7 +10,10 @@
 
 Both hold in both tie modes. ``delineate_cuda.launches`` and
 ``delineate_cuda_s2d.launches`` count each entry's launches, so a run can
-show which of them its path went through.
+show which of them its path went through; ``.store_launches`` splits each
+count by the kernel's choice store (``"shared"``: bit planes in shared
+memory; ``"scratch"``: the ``(N, W, H)`` device scratch), which the C entry
+picks by shape (:func:`choice_store`).
 """
 
 from __future__ import annotations
@@ -42,7 +45,18 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
+    lib.minpath_smem_choices.argtypes = [ctypes.c_int] * 3
+    lib.minpath_smem_choices.restype = ctypes.c_int
     return lib
+
+
+def choice_store(w: int, h: int, max_grad: int) -> str:
+    """The choice store the kernel takes for maps of ``w`` columns and
+    ``h`` rows: ``"shared"`` or ``"scratch"``."""
+    found = _library().minpath_smem_choices(w, h, max_grad)
+    if found < 0:
+        raise ValueError(f"the min-path kernel refuses W={w}, H={h}, max_grad={max_grad}")
+    return "shared" if found else "scratch"
 
 
 def _check(maps_u8: torch.Tensor, max_grad: int, tie_parity: str, name: str):
@@ -61,15 +75,19 @@ def _check(maps_u8: torch.Tensor, max_grad: int, tie_parity: str, name: str):
 
 def _launch(entry: str, maps, n: int, w: int, h: int, max_grad: int, tie_parity: str):
     """Launch one C entry on ``n`` maps of ``w`` columns and ``h`` rows;
-    returns ``(n, w)`` int32 rows."""
+    returns ``(n, w)`` int32 rows and the choice store it took (None when
+    ``n`` is 0 and nothing ran)."""
     if not 1 <= h <= MAX_HEIGHT:
         raise ValueError(f"the min-path kernel takes 1 <= H <= {MAX_HEIGHT}, got H={h}")
     if w < 1:
         raise ValueError(f"the min-path kernel needs W >= 1, got W={w}")
     rows = torch.empty((n, w), dtype=torch.int32, device=maps.device)
     if n == 0:
-        return rows
-    choices = torch.empty((n, w, h), dtype=torch.uint8, device=maps.device)
+        return rows, None
+    store = choice_store(w, h, max_grad)
+    # The scratch is read and written only by the scratch store.
+    shape = (n, w, h) if store == "scratch" else (1,)
+    choices = torch.empty(shape, dtype=torch.uint8, device=maps.device)
     fn = getattr(_library(), entry)
     with torch.cuda.device(maps.device):
         stream = torch.cuda.current_stream(maps.device).cuda_stream
@@ -86,7 +104,7 @@ def _launch(entry: str, maps, n: int, w: int, h: int, max_grad: int, tie_parity:
         )
     if err != 0:
         raise RuntimeError(f"minpath kernel launch failed: cudaError_t {err}")
-    return rows
+    return rows, store
 
 
 def delineate_cuda(
@@ -100,13 +118,17 @@ def delineate_cuda(
     lead = tuple(maps_u8.shape[:-2])
     w, h = maps_u8.shape[-2], maps_u8.shape[-1]
     maps = maps_u8.reshape(-1, w, h)
-    rows = _launch("minpath_delineate", maps, maps.shape[0], w, h, max_grad, tie_parity)
-    if maps.shape[0]:
+    rows, store = _launch(
+        "minpath_delineate", maps, maps.shape[0], w, h, max_grad, tie_parity
+    )
+    if store:
         delineate_cuda.launches += 1
+        delineate_cuda.store_launches[store] += 1
     return rows.reshape(lead + (w,))
 
 
 delineate_cuda.launches = 0
+delineate_cuda.store_launches = {"shared": 0, "scratch": 0}
 
 
 def delineate_cuda_s2d(
@@ -122,10 +144,14 @@ def delineate_cuda_s2d(
     _check(maps_s2d_u8, max_grad, tie_parity, "delineate_cuda_s2d")
     B, M, hb, wb, _ = maps_s2d_u8.shape
     n, w, h = B * M, 2 * wb, 2 * hb
-    rows = _launch("minpath_delineate_s2d", maps_s2d_u8, n, w, h, max_grad, tie_parity)
-    if n:
+    rows, store = _launch(
+        "minpath_delineate_s2d", maps_s2d_u8, n, w, h, max_grad, tie_parity
+    )
+    if store:
         delineate_cuda_s2d.launches += 1
+        delineate_cuda_s2d.store_launches[store] += 1
     return rows.reshape(B, M, w)
 
 
 delineate_cuda_s2d.launches = 0
+delineate_cuda_s2d.store_launches = {"shared": 0, "scratch": 0}

@@ -13,7 +13,8 @@ share this contract:
 
 - :func:`fused_enc_pair_reference`, the plain unfused chain in PyTorch;
 - :func:`.s2d_enc_pair_cuda.fused_enc_pair_cuda`, the hand-written CUDA
-  kernel (``csrc/s2d_enc_pair.cu``) that keeps ``y1`` in shared memory.
+  kernel (``csrc/s2d_enc_pair.cu``) that keeps ``y1`` in shared memory and
+  runs both convs on the tensor cores in 3xTF32.
 
 :func:`fused_enc_pair` runs the kernel for a CUDA tensor and the plain
 version for a CPU tensor.

@@ -4,8 +4,10 @@
 The kernel replaces the Pallas TPU kernel
 ``oct_image_segmentation_models_tpu/ops/s2d_pallas.py::fused_enc_pair``
 and computes what :func:`.s2d_enc_pair.fused_enc_pair_reference` computes,
-up to float32 summation order. ``fused_enc_pair_cuda.launches`` counts its
-launches.
+to float32 accuracy (3xTF32 on the tensor cores). ``fused_enc_pair_cuda.
+launches`` counts its launches and ``.tile_launches`` splits them by the
+CTA tile the C entry picks for 4C (``"8x16"`` block rows x columns while
+the y1 tile fits in shared memory, else ``"4x8"``; :func:`enc_pair_tile`).
 """
 
 from __future__ import annotations
@@ -25,7 +27,18 @@ def _library() -> ctypes.CDLL:
     fn = lib.s2d_enc_pair
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.s2d_enc_pair_tile.argtypes = [ctypes.c_int]
+    lib.s2d_enc_pair_tile.restype = ctypes.c_int
     return lib
+
+
+def enc_pair_tile(c4: int) -> str:
+    """The kernel's CTA tile for 4C = ``c4``, as ``"TRxTC"`` block rows x
+    columns; raises for a 4C the kernel refuses."""
+    code = _library().s2d_enc_pair_tile(c4)
+    if code == 0:
+        raise ValueError(f"fused_enc_pair_cuda: no tile fits 4C={c4} in shared memory")
+    return f"{code // 100}x{code % 100}"
 
 
 def fused_enc_pair_cuda(x, w1, b1, w2, b2):
@@ -49,6 +62,7 @@ def fused_enc_pair_cuda(x, w1, b1, w2, b2):
         )
     if min(B, nh, nw) < 1:
         raise ValueError(f"empty input {tuple(x.shape)}")
+    tile = enc_pair_tile(c4)
     y2 = torch.empty((B, nh, nw, c4), dtype=torch.float32, device=x.device)
     pooled = torch.empty((B, nh, nw, c4 // 4), dtype=torch.float32, device=x.device)
     fn = _library().s2d_enc_pair
@@ -72,7 +86,9 @@ def fused_enc_pair_cuda(x, w1, b1, w2, b2):
     if err != 0:
         raise RuntimeError(f"s2d_enc_pair kernel launch failed: cudaError_t {err}")
     fused_enc_pair_cuda.launches += 1
+    fused_enc_pair_cuda.tile_launches[tile] += 1
     return y2, pooled
 
 
 fused_enc_pair_cuda.launches = 0
+fused_enc_pair_cuda.tile_launches = {"8x16": 0, "4x8": 0}

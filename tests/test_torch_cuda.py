@@ -16,6 +16,7 @@ from oct_image_segmentation_models_torch.ops.minpath import (
     delineate_s2d_reference,
 )
 from oct_image_segmentation_models_torch.ops.minpath_cuda import (
+    choice_store,
     delineate_cuda,
     delineate_cuda_s2d,
 )
@@ -24,6 +25,7 @@ from oct_image_segmentation_models_torch.ops.s2d_enc_pair import (
     fused_enc_pair_reference,
 )
 from oct_image_segmentation_models_torch.ops.s2d_enc_pair_cuda import (
+    enc_pair_tile,
     fused_enc_pair_cuda,
 )
 from oct_image_segmentation_models_torch.ops.s2d_unet import phase_max_pool
@@ -31,6 +33,49 @@ from oct_image_segmentation_models_torch.ops.s2d_unet import phase_max_pool
 # The encoder-pair kernel sums in another order than cuDNN: float32 sums of
 # depth up to 4 * 4C = 1024 at O(1) activations (the JAX kernel test's 1e-4).
 PAIR_ATOL = 1e-4
+
+# The min-path map families of tests/test_minpath.py, shared with
+# tests/test_torch_minpath.py (this module imports no JAX, so the card's
+# machine can import it).
+FAMILIES = ("ridge", "jumps", "gaps", "plateau", "flat_tail", "sparse", "dense")
+
+
+def _smooth_rows(rng, w, h, max_step=1, margin=2):
+    rows = [rng.integers(margin, h - margin)]
+    for _ in range(w - 1):
+        step = rng.integers(-max_step, max_step + 1)
+        rows.append(int(np.clip(rows[-1] + step, margin, h - margin)))
+    return np.array(rows)
+
+
+def _ridge_map(w, h, rows):
+    m = np.zeros((w, h), dtype=np.uint8)
+    m[np.arange(w), rows] = 255
+    return m
+
+
+def _family_map(rng, family, w, h):
+    """The map families of tests/test_minpath.py, one (W, H) map."""
+    if family == "sparse":
+        return (rng.random((w, h)) < 0.15).astype(np.uint8) * 255
+    if family == "dense":
+        return rng.integers(0, 256, size=(w, h), dtype=np.uint8)
+    if family == "jumps":
+        return _ridge_map(w, h, _smooth_rows(rng, w, h, max_step=4))
+    m = _ridge_map(w, h, _smooth_rows(rng, w, h, max_step=2))
+    if family == "gaps":
+        m[rng.choice(w, size=6, replace=False), :] = 0
+    elif family == "plateau":
+        m |= np.roll(m, 1, axis=1)
+        if rng.random() < 0.5:
+            m |= np.roll(m, 2, axis=1)
+    elif family == "flat_tail":
+        tail = int(rng.integers(3, 9))
+        if rng.random() < 0.5:
+            m[-tail:, :] = 0
+        else:
+            m[:tail, :] = 0
+    return m
 
 
 @pytest.fixture
@@ -125,3 +170,113 @@ def test_enc_pair_kernel_rejects_what_it_does_not_take(cuda):
         fused_enc_pair_cuda(x.transpose(1, 2), w1, b, w2, b)
     with pytest.raises(ValueError, match="CUDA"):
         fused_enc_pair_cuda(x.cpu(), w1.cpu(), b.cpu(), w2.cpu(), b.cpu())
+
+
+def _both_kernels(maps_t, g, tie_parity):
+    """B1 on (N, W, H) maps and B2 on the same maps in s2d layout (W, H
+    even), each held bit for bit against its plain version; returns the
+    choice store the launches took."""
+    n, w, h = maps_t.shape
+    got = delineate_cuda(maps_t, max_grad=g, tie_parity=tie_parity)
+    want = delineate_reference(maps_t, max_grad=g, tie_parity=tie_parity)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if w % 2 == 0 and h % 2 == 0:
+        s2d = image_maps_to_s2d(maps_t.transpose(-1, -2).reshape(1, n, h, w))
+        got_s2d = delineate_cuda_s2d(s2d, max_grad=g, tie_parity=tie_parity)
+        torch.cuda.synchronize()
+        assert torch.equal(got_s2d[0], want)
+        assert torch.equal(
+            got_s2d, delineate_s2d_reference(s2d, max_grad=g, tie_parity=tie_parity)
+        )
+    return choice_store(w, h, g)
+
+
+@pytest.mark.parametrize("tie_parity", ["exact", "fast"])
+@pytest.mark.parametrize("max_grad", [1, 2])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_kernels_match_reference_on_families(cuda, family, max_grad, tie_parity):
+    rng = np.random.default_rng(FAMILIES.index(family) * 10 + max_grad)
+    maps = np.stack([_family_map(rng, family, 24, 20) for _ in range(6)])
+    store = _both_kernels(torch.from_numpy(maps).to(cuda), max_grad, tie_parity)
+    assert store == "shared"
+
+
+def _constant_maps(n, w, h):
+    """Tie-heavy maps: all 0, all 255, all 128, and 255 plateaus of 1-8
+    rows wandering across the columns."""
+    rng = np.random.default_rng(w + h)
+    maps = [np.full((w, h), v, np.uint8) for v in (0, 255, 128)]
+    for _ in range(max(0, n - 3)):
+        m = np.zeros((w, h), np.uint8)
+        rows = np.clip(h // 2 + np.cumsum(rng.integers(-1, 2, w)), 0, h - 9)
+        width = rng.integers(1, 9)
+        for j, r in enumerate(rows):
+            m[j, r : r + width] = 255
+        maps.append(m)
+    return np.stack(maps[:n])
+
+
+@pytest.mark.parametrize("tie_parity", ["exact", "fast"])
+@pytest.mark.parametrize(
+    "kind,n,w,h,g,store",
+    [
+        ("constant", 5, 64, 32, 1, "shared"),
+        ("constant", 5, 40, 500, 2, "shared"),  # H not a power of two
+        ("families", 5, 64, 1024, 1, "shared"),  # H = 1024, odd N
+        ("families", 3, 640, 1024, 1, "scratch"),  # planes past shared memory
+        ("constant", 3, 600, 1024, 2, "scratch"),
+        ("families", 7, 33, 45, 1, "shared"),  # odd W and H: B1 only
+        ("families", 7, 48, 40, 4, "shared"),  # max_grad 4: run-time max_grad
+        ("constant", 3, 40, 40, 30, "shared"),  # max_grad 30, the largest
+    ],
+)
+def test_kernels_match_reference_on_variants(cuda, kind, n, w, h, g, store, tie_parity):
+    if kind == "constant":
+        maps = _constant_maps(n, w, h)
+    else:
+        rng = np.random.default_rng(n * w + h)
+        maps = np.stack(
+            [_family_map(rng, FAMILIES[i % len(FAMILIES)], w, h) for i in range(n)]
+        )
+    before = dict(delineate_cuda.store_launches)
+    assert _both_kernels(torch.from_numpy(maps).to(cuda), g, tie_parity) == store
+    assert delineate_cuda.store_launches[store] == before[store] + 1
+
+
+def _pair_args(rng, cuda, b, nh, nw, cin4, c4):
+    def t(*shape, fan_in):
+        a = (rng.normal(size=shape) / np.sqrt(fan_in)).astype(np.float32)
+        return torch.from_numpy(a).to(cuda)
+
+    return (
+        t(b, nh, nw, cin4, fan_in=1),
+        t(2, 2, cin4, c4, fan_in=4 * cin4),
+        t(c4, fan_in=1),
+        t(2, 2, c4, c4, fan_in=4 * c4),
+        t(c4, fan_in=1),
+    )
+
+
+@pytest.mark.parametrize(
+    "b,nh,nw,cin4,c4,tile",
+    [
+        (8, 128, 256, 128, 256, "8x16"),  # the flagship level 1
+        (2, 13, 37, 128, 256, "8x16"),  # ragged: nh, nw not multiples of the tile
+        (2, 10, 20, 256, 512, "4x8"),  # 4C = 512
+        (1, 7, 9, 12, 40, "8x16"),  # 4Cin not a multiple of 8, C not of 8
+    ],
+)
+def test_enc_pair_kernel_variants(cuda, b, nh, nw, cin4, c4, tile):
+    args = _pair_args(np.random.default_rng(nh + c4), cuda, b, nh, nw, cin4, c4)
+    assert enc_pair_tile(c4) == tile
+    before = fused_enc_pair_cuda.tile_launches[tile]
+    y2, pooled = fused_enc_pair_cuda(*args)
+    torch.cuda.synchronize()
+    assert fused_enc_pair_cuda.tile_launches[tile] == before + 1
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want_y2, want_pool = fused_enc_pair_reference(*args)
+    assert torch.isfinite(y2).all()
+    assert float((y2 - want_y2).abs().max()) <= PAIR_ATOL
+    assert float((pooled - want_pool).abs().max()) <= PAIR_ATOL
+    assert torch.equal(pooled, phase_max_pool(y2))

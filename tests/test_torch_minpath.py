@@ -13,50 +13,12 @@ from oct_image_segmentation_models_torch.ops.boundary import image_maps_to_s2d
 from oct_image_segmentation_models_torch.ops.minpath_cuda import delineate_cuda
 
 from oracle_minpath import dijkstra_delineate
+from test_torch_cuda import FAMILIES, _family_map, _ridge_map, _smooth_rows
 
 # One shape for every family, so JAX compiles once per (max_grad, mode):
 # 2 x 3 leading dims (batch x boundary), W = 24 columns, H = 20 rows (not
 # a power of two).
 LEAD, W, H = (2, 3), 24, 20
-FAMILIES = ("ridge", "jumps", "gaps", "plateau", "flat_tail", "sparse", "dense")
-
-
-def _smooth_rows(rng, w, h, max_step=1, margin=2):
-    rows = [rng.integers(margin, h - margin)]
-    for _ in range(w - 1):
-        step = rng.integers(-max_step, max_step + 1)
-        rows.append(int(np.clip(rows[-1] + step, margin, h - margin)))
-    return np.array(rows)
-
-
-def _ridge_map(w, h, rows):
-    m = np.zeros((w, h), dtype=np.uint8)
-    m[np.arange(w), rows] = 255
-    return m
-
-
-def _family_map(rng, family, w, h):
-    """The map families of tests/test_minpath.py, one (W, H) map."""
-    if family == "sparse":
-        return (rng.random((w, h)) < 0.15).astype(np.uint8) * 255
-    if family == "dense":
-        return rng.integers(0, 256, size=(w, h), dtype=np.uint8)
-    if family == "jumps":
-        return _ridge_map(w, h, _smooth_rows(rng, w, h, max_step=4))
-    m = _ridge_map(w, h, _smooth_rows(rng, w, h, max_step=2))
-    if family == "gaps":
-        m[rng.choice(w, size=6, replace=False), :] = 0
-    elif family == "plateau":
-        m |= np.roll(m, 1, axis=1)
-        if rng.random() < 0.5:
-            m |= np.roll(m, 2, axis=1)
-    elif family == "flat_tail":
-        tail = int(rng.integers(3, 9))
-        if rng.random() < 0.5:
-            m[-tail:, :] = 0
-        else:
-            m[:tail, :] = 0
-    return m
 
 
 def _family(seed, family, lead=LEAD, w=W, h=H):
@@ -82,6 +44,32 @@ def test_reference_matches_jax_xla(family, max_grad, tie_parity):
     assert np.array_equal(got.numpy(), want)
 
 
+def _band_maps(seed, n, w, h, max_step=4):
+    """255 bands of 1-8 rows wandering across the columns: columns where
+    two rows reach the same predecessor at one effective priority, so
+    their rank keys tie."""
+    rng = np.random.default_rng(seed)
+    maps = np.zeros((n, w, h), np.uint8)
+    for i in range(n):
+        rows = _smooth_rows(rng, w, h - 8, max_step=max_step)
+        width = int(rng.integers(1, 9))
+        for j, r in enumerate(rows):
+            maps[i, j, r : r + width] = 255
+    return maps
+
+
+@pytest.mark.parametrize("seed,max_grad", [(0, 30), (3, 30), (7, 8), (8, 8)])
+def test_reference_matches_jax_xla_on_tied_rank_keys(seed, max_grad):
+    """Where rank keys tie, the plain version ranks them as the JAX
+    bitonic network does (a stable sort gave other rows here)."""
+    maps = _band_maps(seed, 3, 48, 40)
+    want = np.asarray(jm._delineate_xla(maps, max_grad=max_grad, tie_parity="exact"))
+    got = tm.delineate_reference(
+        torch.from_numpy(maps), max_grad=max_grad, tie_parity="exact"
+    )
+    assert np.array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("tie_parity", ["exact", "fast"])
 def test_reference_matches_pallas_interpret(tie_parity):
     rng = np.random.default_rng(0)
@@ -102,6 +90,54 @@ def test_reference_exact_matches_oracle(family):
     got = tm.delineate_reference(torch.from_numpy(maps), tie_parity="exact")
     for i in range(maps.shape[0]):
         assert np.array_equal(got[i].numpy(), dijkstra_delineate(maps[i]))
+
+
+# Families on which some column holds two rows with equal rank keys.
+TIED_KEY_FAMILIES = ("plateau", "sparse")
+
+
+@pytest.mark.parametrize("max_grad", [1, 2])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_settle_rank_keys_per_column(monkeypatch, family, max_grad):
+    """The CUDA kernel ranks each column by a bitonic sort of its packed
+    keys (``csrc/minpath.cu``: the 32-bit ``d << FB | pri_eff * P + ctr``
+    or the 64-bit ``(d, sub)`` pair, P the kernel's threads). Both widths
+    must order the rows as the plain version's ``(d, pri_eff * pad + ctr)``
+    pairs, ties included. The keys are unique in every column of the ridge
+    families but tie on plateaus, so a rank that counts smaller keys would
+    give two rows one rank: the kernel keeps the sorting network. The keys
+    are taken from the plain version's own calls of ``_dense_rank``."""
+    maps = _family(FAMILIES.index(family) * 10 + max_grad, family)
+    calls = []
+    dense_rank = tm._dense_rank
+
+    def spy(d_key, sub_key):
+        calls.append((d_key.to(torch.int64), sub_key.to(torch.int64)))
+        return dense_rank(d_key, sub_key)
+
+    monkeypatch.setattr(tm, "_dense_rank", spy)
+    tm.delineate_reference(torch.from_numpy(maps), max_grad=max_grad, tie_parity="exact")
+    assert len(calls) == W  # one rank per column
+    pad = 1 << (H - 1).bit_length()  # the plain version's power of two
+    p = max(32, pad)  # the kernel's threads
+    fb = ((2 + 2 * max_grad) * p - 1).bit_length()
+    assert (255 + 510 * (W - 1) + 1) << fb <= 0xFFFFFFFF  # 32-bit keys apply
+    tied_columns = 0
+    for d, sub in calls:
+        d, sub = d.reshape(-1, H), sub.reshape(-1, H)
+        pair = (d << 32) | sub  # orders as (d, sub)
+        sub_kernel = (sub // pad) * p + sub % pad  # pri_eff * P + ctr
+        key32 = (d << fb) | sub_kernel
+        assert int(key32.max()) < 2**32
+        for key in (key32, (d << 32) | sub_kernel):
+            for cmp in (torch.lt, torch.eq):
+                assert torch.equal(
+                    cmp(key[:, :, None], key[:, None, :]),
+                    cmp(pair[:, :, None], pair[:, None, :]),
+                )
+        ordered = pair.sort(dim=-1).values
+        tied_columns += int((ordered[:, 1:] == ordered[:, :-1]).any(dim=-1).sum())
+    assert (tied_columns > 0) == (family in TIED_KEY_FAMILIES), tied_columns
 
 
 def test_delineate_image_maps_matches_jax():

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from oct_image_segmentation_models_tpu.models import get_model_class as jax_model_class
 from oct_image_segmentation_models_tpu.ops import s2d_pallas as jp
@@ -53,6 +54,82 @@ def test_reference_matches_pallas_interpret(nh, nw, cgroups):
     )
     # pooled is exactly the phase max of the same y2.
     assert torch.equal(got_pool, ts.phase_max_pool(got_y2))
+
+
+_TF32_DROP = (1 << 13) - 1  # float32 mantissa bits below TF32's 10
+
+
+def tf32_split(v: torch.Tensor):
+    """The CUDA kernel's 3xTF32 split of a float32 tensor, as the tensor
+    cores see it: ``hi`` is ``v`` rounded to TF32, to nearest with ties away
+    from zero (``cvt.rna.tf32.f32``), and ``lo`` is ``v - hi`` (exact in
+    float32) with its low 13 mantissa bits dropped (an MMA reads the top 19
+    bits of a TF32 operand)."""
+    bits = v.contiguous().view(torch.int32)
+    hi = ((bits + (1 << 12)) & ~_TF32_DROP).view(torch.float32)
+    lo = ((v - hi).contiguous().view(torch.int32) & ~_TF32_DROP).view(torch.float32)
+    return hi, lo
+
+
+def test_tf32_split_gives_back_the_operand():
+    rng = np.random.default_rng(3)
+    v = rng.standard_normal(100_000) * np.exp(4 * rng.standard_normal(100_000))
+    v = torch.from_numpy(v.astype(np.float32))
+    hi, lo = tf32_split(v)
+    for part in (hi, lo):  # TF32 values: the low 13 mantissa bits are 0
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    v64 = v.double()
+    assert float(((hi.double() - v64).abs() / v64.abs()).max()) <= 2**-11
+    assert float(((hi.double() + lo.double() - v64).abs() / v64.abs()).max()) <= 2**-21
+
+
+def _tf32_pair(x, w1, b1, w2, b2, terms):
+    """The encoder pair with each conv's products taken from TF32 operands
+    as the kernel's tensor cores take them: ``hi * hi`` alone (1xTF32) or
+    ``hi * hi + hi * lo + lo * hi`` (3xTF32), summed in float64."""
+
+    def conv(a, w_hwio, b, pads):
+        (ah, al), (wh, wl) = tf32_split(a), tf32_split(w_hwio)
+        pairs = [(ah, wh), (ah, wl), (al, wh)][:terms]
+        out = sum(
+            ts._conv_nchw(u.double(), v.permute(3, 2, 0, 1).double(), None, pads)
+            for u, v in pairs
+        )
+        return (out + b.double()[None, :, None, None]).float()
+
+    x = x.permute(0, 3, 1, 2).contiguous()
+    _, _, nh, nw = x.shape
+    pads1 = ts._conv_pads(nh, nw, (-1, 0), (-1, 0), nh + 1, nw + 1)
+    y1 = ts._mask_shifted_nchw(F.relu(conv(x, w1, b1, pads1)))
+    pads2 = ts._conv_pads(nh + 1, nw + 1, (0, 1), (0, 1), nh, nw)
+    y2 = F.relu(conv(y1, w2, b2, pads2))
+    return y2.permute(0, 2, 3, 1), ts._phase_max_pool_nchw(y2).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("terms,within", [(3, True), (1, False)])
+def test_tf32_emulation_at_level1_depth(terms, within):
+    """3xTF32 (the kernel's scheme) stays within the pair's 1e-4 of the
+    Pallas kernel at level-1 depth (4Cin 128, 4C 256); 1xTF32 does not."""
+    rng = np.random.default_rng(11)
+    B, nh, nw, cin4, c4 = 2, 4, 6, 128, 256
+
+    def t(*shape, fan_in=1):
+        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    args = (
+        t(B, nh, nw, cin4),
+        t(2, 2, cin4, c4, fan_in=4 * cin4),
+        t(c4),
+        t(2, 2, c4, c4, fan_in=4 * c4),
+        t(c4),
+    )
+    want_y2, want_pool = jp.fused_enc_pair(*map(jnp.asarray, args), interpret=True)
+    y2, pooled = _tf32_pair(*map(torch.from_numpy, args), terms)
+    err = max(
+        float(np.abs(y2.numpy() - np.asarray(want_y2)).max()),
+        float(np.abs(pooled.numpy() - np.asarray(want_pool)).max()),
+    )
+    assert (err <= PAIR_ATOL) == within, err
 
 
 def test_enc_pair_supported_matches_jax():
