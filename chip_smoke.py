@@ -33,15 +33,31 @@ Phases, each of which raises on failure:
      with the CPU s2d forward;
    - the BN-folded path of the first slice, through B1, checked the same
      way, with one B-scan's probabilities against the CPU forward;
-   - the s2d forward with fused encoder pairs, one batch through B3.
+   - the s2d forward with fused encoder pairs, one batch through B3;
+   - the predict path, the device part of the predict and evaluate
+     workflows: ``run_pipeline`` (``StagedPipeline``: s2d probabilities,
+     image-layout maps, B1) on the 20 B-scans and 4 more at 512x768 in
+     one call (two shape buckets), in both tie modes. Its rows must equal
+     the plain min-path on the maps it returned, its masks
+     ``create_area_mask`` of its rows, its labels the s2d path's on
+     >= 0.999 of pixels. Then ``graph_search.segment_maps`` on one batch's
+     uint8 maps (one B1 launch, the exact-tie rows again) and
+     ``delineate_float`` on the card against the CPU, rows equal.
 4. Times, with CUDA events (median of several runs after warm-up): both
    pipelines per batch and their stages, each kernel per call beside its
    plain version, its yardstick and its bound (B3: on the tensor cores,
    the route it takes, and on the float32 CUDA cores), the min-path per
-   column.
+   column; the predict path's per-image stage times (host clock around
+   each synchronised stage, as ``run_pipeline`` keeps them), the host
+   copy of one batch's outputs, and ``delineate_float``.
 
 Each path's run also prints which variant of each kernel it took (the
 min-path choice store, the encoder pair's tile).
+
+The workflows' artifact writing (``predict``, ``evaluate_model``) needs
+h5py and matplotlib, which the card's machine lacks, so this script
+drives ``run_pipeline`` and the graph-search API only; the CPU tests
+(``tests/test_torch_predict_evaluate.py``) hold the artifacts.
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -63,6 +79,7 @@ import torch
 
 H, W, BATCH, NUM_CLASSES = 512, 1024, 8, 4
 VOLUME = 20  # two full batches and a remainder of 4
+W_NARROW, N_NARROW = 768, 4  # the predict path's second image shape
 N_MAPS = BATCH * (NUM_CLASSES - 1)  # 24 maps per batch
 # Card peaks for the bound (H100 SXM data sheet): 3.35 TB/s of HBM3;
 # int32 ALU ops at half the 67 TFLOP/s float32 CUDA-core rate (64 INT32
@@ -618,6 +635,179 @@ def phase_fused(model, volume: np.ndarray, s2d_labels: np.ndarray) -> dict:
     }
 
 
+def check_staged_rows(tie: str, maps: np.ndarray, rows: np.ndarray, masks=None) -> None:
+    """Rows of the staged path against the plain min-path on the maps the
+    path returned, bit for bit; masks against ``create_area_mask`` of the
+    rows."""
+    from oct_image_segmentation_models_torch._device import float32_precision
+    from oct_image_segmentation_models_torch.ops.boundary import create_area_mask
+    from oct_image_segmentation_models_torch.ops.minpath import delineate_reference
+
+    n, m, h, w = maps.shape
+    if maps.dtype != np.uint8 or rows.dtype != np.uint16 or rows.shape != (n, m, w):
+        raise AssertionError(f"maps {maps.dtype} {maps.shape}, rows {rows.dtype} {rows.shape}")
+    maps_t = torch.from_numpy(maps).cuda().transpose(-1, -2).contiguous()
+    with float32_precision():
+        want = delineate_reference(maps_t, tie_parity=tie)
+    if not np.array_equal(rows.astype(np.int64), want.cpu().numpy()):
+        raise AssertionError(f"staged {tie}-tie rows at {h}x{w} differ from the plain min-path")
+    msg = f"staged rows ({tie} ties, {n} B-scans at {h}x{w}) equal the plain min-path"
+    if masks is not None:
+        want_masks = create_area_mask(torch.from_numpy(rows).cuda().to(torch.float32), h)
+        if not np.array_equal(masks, want_masks.cpu().numpy()):
+            raise AssertionError(f"staged {tie}-tie masks differ from create_area_mask")
+        msg += "; masks equal create_area_mask of the rows"
+    print(msg)
+
+
+def phase_predict_path(model, rng, volume: np.ndarray, s2d_labels: np.ndarray) -> dict:
+    """The device part of the predict and evaluate workflows:
+    ``run_pipeline`` (StagedPipeline: s2d probabilities, image maps, B1)
+    on a mixed-shape set, in both tie modes; then the graph-search API and
+    the float min-path."""
+    from oct_image_segmentation_models_torch.common.model_io import LoadedModel
+    from oct_image_segmentation_models_torch.min_path_processing import graph_search
+    from oct_image_segmentation_models_torch.ops.minpath import delineate_float
+    from oct_image_segmentation_models_torch.ops.minpath_cuda import delineate_cuda
+    from oct_image_segmentation_models_torch.prediction.prediction import run_pipeline
+
+    container, module = model
+    config = container.get_config()
+    loaded = LoadedModel("unet", module, config)
+    narrow = layered_bscans(rng, N_NARROW, H, W_NARROW, NUM_CLASSES)
+    images = list(volume) + list(narrow)  # two shapes: two buckets
+
+    reset_counts()
+    t0 = time.perf_counter()
+    results = {
+        tie: run_pipeline(
+            loaded, config, images, BATCH, True, minpath_tie_parity=tie, device="cuda"
+        )
+        for tie in ("fast", "exact")
+    }
+    torch.cuda.synchronize()
+    first_run_s = time.perf_counter() - t0
+    counts, variants = read_counts(), read_variants()
+    print(
+        f"predict path: run_pipeline on {VOLUME} B-scans at {H}x{W} + {N_NARROW} at "
+        f"{H}x{W_NARROW}, batch {BATCH}, both tie modes, in {first_run_s:.2f} s (first "
+        f"calls), launches {counts}, variants {variants}"
+    )
+    if counts["minpath_dp"] < 1:
+        raise AssertionError("the predict path never launched B1")
+    if counts["minpath_dp_s2d"] or counts["s2d_enc_pair"]:
+        raise AssertionError(f"the predict path launched other kernels: {counts}")
+
+    def stacked(res, key, sel):
+        return np.stack(res[key][sel])
+
+    wide, tail = slice(0, VOLUME), slice(VOLUME, None)
+    for tie, res in results.items():
+        check_staged_rows(
+            tie,
+            stacked(res, "boundary_maps", wide),
+            stacked(res, "gs_pred_segs", wide),
+            stacked(res, "gs_masks", wide),
+        )
+        check_staged_rows(
+            tie,
+            stacked(res, "boundary_maps", tail),
+            stacked(res, "gs_pred_segs", tail),
+            stacked(res, "gs_masks", tail),
+        )
+    labels = stacked(results["fast"], "predicted_labels", wide)
+    differ = int((labels != s2d_labels).sum())
+    agree = 1.0 - differ / labels.size
+    print(
+        f"staged labels vs the fused s2d pipeline's, {VOLUME} B-scans: agreement "
+        f"{agree:.6f} ({differ} of {labels.size} pixels differ)"
+    )
+    if agree < MIN_AGREEMENT:
+        raise AssertionError(f"staged labels agree with the fused pipeline on {agree}")
+
+    # The graph-search API on one batch's uint8 maps, (W, H) orientation.
+    maps = stacked(results["exact"], "boundary_maps", slice(0, BATCH))
+    maps_wh = maps.reshape(-1, H, W).transpose(0, 2, 1)
+    before = delineate_cuda.launches
+    gs_rows, _, _ = graph_search.segment_maps(
+        maps_wh, None, graph_search.create_graph_structure((W, H)), device="cuda"
+    )
+    gs_launches = delineate_cuda.launches - before
+    want = stacked(results["exact"], "gs_pred_segs", slice(0, BATCH)).reshape(-1, W)
+    if gs_launches != 1 or not np.array_equal(gs_rows, want):
+        raise AssertionError(
+            f"segment_maps: {gs_launches} B1 launches, rows equal to the staged "
+            f"exact rows: {np.array_equal(gs_rows, want)}"
+        )
+    print(f"segment_maps on {maps_wh.shape} uint8 maps: one B1 launch, rows equal the staged exact rows")
+
+    # The float min-path (plain PyTorch on the card) against the CPU.
+    fmaps = np.clip(
+        maps_wh / 255.0 + rng.normal(0, 0.05, maps_wh.shape), 0, 1
+    ).astype(np.float32)
+    cpu_rows = delineate_float(torch.from_numpy(fmaps))
+    fmaps_card = torch.from_numpy(fmaps).cuda()
+    card_rows = delineate_float(fmaps_card)
+    float_ms = time_cuda(lambda: delineate_float(fmaps_card), iters=1, reps=3, warmup=1)
+    if not torch.equal(card_rows.cpu(), cpu_rows):
+        raise AssertionError("delineate_float rows differ between the card and the CPU")
+    print(
+        f"delineate_float at {fmaps.shape}: card rows equal CPU rows, "
+        f"{float_ms:.3f} ms on the card"
+    )
+    return {
+        "launches": counts["minpath_dp"],
+        "store_launches": variants.get("minpath_dp", {}),
+        "segment_maps_launches": gs_launches,
+        "labels_agreement_fused": agree,
+        "labels_differ": differ,
+        "delineate_float_ms": float_ms,
+        "delineate_float_shape": fmaps.shape,
+        "loaded": loaded,
+        "config": config,
+        "preprocess": container.get_preprocess_input_fn(),
+    }
+
+
+def predict_path_times(predict: dict, volume: np.ndarray) -> dict:
+    """Per-image stage times of ``run_pipeline`` (warm, the uniform
+    volume) in both tie modes, and the time to copy one batch's outputs
+    to the host."""
+    from oct_image_segmentation_models_torch.ops.inference import StagedPipeline
+    from oct_image_segmentation_models_torch.prediction.prediction import (
+        run_pipeline,
+        to_host,
+    )
+
+    loaded, config = predict["loaded"], predict["config"]
+    out = {}
+    for tie in ("fast", "exact"):
+        t0 = time.perf_counter()
+        res = run_pipeline(
+            loaded, config, volume, BATCH, True, minpath_tie_parity=tie, device="cuda"
+        )
+        out[f"staged_run_pipeline_{tie}_s"] = time.perf_counter() - t0
+        for stage in ("predict", "convert", "graph"):
+            out[f"staged_{stage}_{tie}_ms_per_image"] = (
+                statistics.mean(res[f"{stage}_times"]) * 1e3
+            )
+    pipe = StagedPipeline(loaded.module, predict["preprocess"], device="cuda")
+    batch = torch.from_numpy(volume[:BATCH]).pin_memory()
+    labels, cat, maps = pipe.convert(pipe.predict_probs(batch))
+    rows, masks = pipe.graph_search(maps)
+    outputs = (labels, cat, maps, rows, masks)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        to_host(*outputs)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["host_copy_ms_per_batch"] = statistics.median(times)
+    out["host_copy_bytes_per_batch"] = sum(t.numel() * t.element_size() for t in outputs)
+    out["host_copy_categorical_bytes"] = cat.numel() * cat.element_size()
+    return out
+
+
 def kernel_bound_ms(n: int, w: int, h: int, max_grad: int, exact: bool) -> tuple:
     """Least time for the min-path function on these shapes: bytes (maps
     read once, int32 rows written once) over HBM bandwidth, against int32
@@ -873,7 +1063,9 @@ def main(argv=None) -> int:
     agree_folded = float((s2d["labels"] == folded["labels"]).mean())
     print(f"s2d labels vs folded labels, {VOLUME} B-scans: agreement {agree_folded:.6f}")
     fused = phase_fused(model, volume, s2d["labels"])
+    predict = phase_predict_path(model, rng, volume, s2d["labels"])
     times = phase_times(model, s2d, folded, fused, parity_pair["flagship_args"])
+    times.update(predict_path_times(predict, volume))
 
     card = env["card"]
     for path in ("s2d", "folded"):
@@ -916,6 +1108,26 @@ def main(argv=None) -> int:
     )
     for tie in ("fast", "exact"):
         print(
+            f"[{card}] predict path (run_pipeline, batch {BATCH} x {H}x{W}, {tie} ties), "
+            f"per image: predict {times[f'staged_predict_{tie}_ms_per_image']:.3f} ms, "
+            f"convert {times[f'staged_convert_{tie}_ms_per_image']:.3f} ms, graph "
+            f"{times[f'staged_graph_{tie}_ms_per_image']:.3f} ms; the whole call on "
+            f"{VOLUME} B-scans {times[f'staged_run_pipeline_{tie}_s']:.3f} s = "
+            f"{VOLUME / times[f'staged_run_pipeline_{tie}_s']:.1f} B-scans/s"
+        )
+    copy_mib = times["host_copy_bytes_per_batch"] / 2**20
+    print(
+        f"[{card}] predict path host copy per batch of {BATCH} ({copy_mib:.1f} MiB, "
+        f"categorical {times['host_copy_categorical_bytes'] / 2**20:.1f} MiB): "
+        f"{times['host_copy_ms_per_batch']:.3f} ms = "
+        f"{times['host_copy_bytes_per_batch'] / times['host_copy_ms_per_batch'] / 1e6:.2f} GB/s"
+    )
+    print(
+        f"[{card}] delineate_float (plain PyTorch) at "
+        f"{predict['delineate_float_shape']}: {predict['delineate_float_ms']:.3f} ms"
+    )
+    for tie in ("fast", "exact"):
+        print(
             f"[{card}] minpath {tie} at {N_MAPS}x{W}x{H}: B1 "
             f"{times[f'b1_{tie}_ms']:.4f} ms = {times[f'b1_{tie}_ms'] / W * 1e3:.3f} "
             f"us/column (plain {times[f'b1_plain_{tie}_ms']:.1f}"
@@ -939,7 +1151,13 @@ def main(argv=None) -> int:
     tpu_minpath = "oct_image_segmentation_models_tpu/ops/minpath_pallas.py"
     kernels = []
     for name, launches, err, key, replaces in (
-        ("minpath_dp", folded["launches"], parity["max_abs_err"], "b1", f"{tpu_minpath}:487"),
+        (
+            "minpath_dp",
+            folded["launches"] + predict["launches"],
+            parity["max_abs_err"],
+            "b1",
+            f"{tpu_minpath}:487",
+        ),
         ("minpath_dp_s2d", s2d["launches"], parity_s2d["max_abs_err"], "b2", f"{tpu_minpath}:533"),
     ):
         line = kernel_line(
@@ -955,6 +1173,10 @@ def main(argv=None) -> int:
             us_per_column=times[f"{key}_fast_ms"] / W * 1e3,
             us_per_column_exact=times[f"{key}_exact_ms"] / W * 1e3,
         )
+        if key == "b1":
+            line["launches_folded_path"] = folded["launches"]
+            line["launches_predict_path"] = predict["launches"]
+            line["predict_path_store_launches"] = predict["store_launches"]
         if key == "b2":
             line["transpose_then_b1_ms"] = times["b2_yardstick_fast_ms"]
             line["transpose_then_b1_ms_exact"] = times["b2_yardstick_exact_ms"]
@@ -986,6 +1208,10 @@ def main(argv=None) -> int:
             "s2d_agreement_cpu": s2d["agreement_cpu"],
             "s2d_vs_folded_agreement": agree_folded,
             "fused_vs_unfused_agreement": fused["agreement_unfused"],
+            "predict_path": {
+                k: v for k, v in predict.items()
+                if k not in ("loaded", "config", "preprocess")
+            },
             "times": times,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start,

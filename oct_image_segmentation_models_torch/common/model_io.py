@@ -6,13 +6,16 @@
 - :func:`read_checkpoint` reads the JAX package's native HDF5 checkpoint
   (``format="octseg-tpu-v1"``: model name and config as attributes, one
   dataset per variable under its collection group, keyed by its tree
-  path) with h5py alone. h5py is imported there and nowhere else.
-- :func:`load_model` rebuilds a :class:`LoadedModel` from such a file.
+  path) with h5py alone, imported inside the functions that read files.
+- :func:`load_model` rebuilds a :class:`LoadedModel` from such a file;
+  :func:`load_model_and_config` does so with the workflows' surface (a
+  sidecar ``model_config.json`` wins over the embedded config).
 """
 
 from __future__ import annotations
 
 import json
+import logging as log
 from pathlib import Path
 
 import numpy as np
@@ -120,12 +123,64 @@ class LoadedModel:
         self.output_classes = model_config["num_classes"]
 
 
-def load_model(path, device=None) -> LoadedModel:
-    """Rebuild a model from a JAX-package checkpoint on ``device`` (None
-    means CUDA)."""
-    model_name, model_config, variables = read_checkpoint(path)
+def _build(model_name: str, model_config: dict, variables: dict, device) -> LoadedModel:
     state_dict = state_dict_from_flax(variables)
     container = get_model_class(model_name)(**model_config)
     module = container.build_model(device=device, use_bn=not is_folded(state_dict))
     module.load_state_dict(state_dict)
     return LoadedModel(model_name, module, model_config)
+
+
+def load_model(path, device=None) -> LoadedModel:
+    """Rebuild a model from a JAX-package checkpoint on ``device`` (None
+    means CUDA)."""
+    return _build(*read_checkpoint(path), device)
+
+
+def _is_native_checkpoint(path: Path) -> bool:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return f.attrs.get("format", b"") == CHECKPOINT_FORMAT
+
+
+def load_model_and_config(
+    model_path, mlflow_tracking_uri=None, mlflow_run_uuid=None, device=None
+) -> tuple:
+    """Restore a model from a native checkpoint -> ``(LoadedModel,
+    model_config)``, on ``device`` (None means CUDA), as the JAX
+    package's ``load_model_and_config``: a ``model_config.json`` beside
+    the checkpoint takes precedence over the embedded config.
+
+    MLflow runs, Keras ``.h5`` checkpoints and Orbax checkpoint
+    directories are not ported (ROADMAP A12) and raise
+    ``NotImplementedError``."""
+    model_path = Path(model_path)
+    if mlflow_run_uuid and not mlflow_tracking_uri:
+        raise ValueError(
+            "mlflow_run_uuid requires mlflow_tracking_uri (the run can "
+            "only be resolved against a tracking server/store)"
+        )
+    if mlflow_tracking_uri:
+        raise NotImplementedError(
+            "loading a model through MLflow is not ported yet (ROADMAP A12)"
+        )
+    if model_path.is_dir():
+        raise NotImplementedError(
+            f"{model_path} is a directory: Orbax checkpoints are not ported "
+            "yet (ROADMAP A12)"
+        )
+    if not _is_native_checkpoint(model_path):
+        raise NotImplementedError(
+            f"{model_path} is not a native checkpoint: Keras checkpoints are "
+            "not ported yet (ROADMAP A12)"
+        )
+    model_name, model_config, variables = read_checkpoint(model_path)
+    sidecar = model_path.parent / "model_config.json"
+    if sidecar.exists():
+        try:
+            with open(sidecar) as fh:
+                model_config = json.load(fh)
+        except (OSError, json.JSONDecodeError):
+            log.warning("Could not read %s; using the embedded config", sidecar)
+    return _build(model_name, model_config, variables, device), model_config

@@ -1,7 +1,10 @@
-"""End-to-end inference pipeline, counterpart of the JAX package's
-``ops/inference.py::make_fused_pipeline``.
+"""Inference pipelines, counterparts of the JAX package's
+``ops/inference.py``: :class:`StagedPipeline` (forward, conversion and
+graph search as separate stages, for the predict and evaluate workflows)
+and :func:`make_fused_pipeline` (the whole chain in one call, for
+streaming volumes).
 
-Two forwards feed it:
+Two forwards feed the fused pipeline:
 
 - the s2d labels forward (:mod:`.s2d_unet`, the default for an eligible
   U-Net): uint8 B-scans -> x/255 -> s2d conv stack -> per-phase softmax
@@ -33,29 +36,104 @@ def select_optimized_forward(
     module: torch.nn.Module,
     compute_dtype: str = "float32",
     optimize: bool = True,
+    s2d_output: str = "labels_s2d",
 ):
     """Pick the inference forward -> ``(forward_module, kind)``, in the JAX
     selection order.
 
     ``kind`` is ``"s2d"`` for a U-Net the s2d transform takes (the forward
-    is an :class:`.s2d_unet.S2DUNet` with output ``"labels_s2d"``; pass it
-    to :func:`make_fused_pipeline`'s ``labels_apply_fn``), ``"folded"`` for
-    another U-Net (BN folded into
-    the convs), and ``"parity"`` without ``optimize`` or for another
-    model (the module as given). Only float32 is ported, so another
-    ``compute_dtype`` raises (the bfloat16 s2d forward is ROADMAP A13)."""
+    is an :class:`.s2d_unet.S2DUNet` with output ``s2d_output``: with the
+    default ``"labels_s2d"`` pass it to :func:`make_fused_pipeline`'s
+    ``labels_apply_fn``; :class:`StagedPipeline` asks for ``"probs"``),
+    ``"folded"`` for another U-Net (BN folded into the convs), and
+    ``"parity"`` without ``optimize`` or for another model (the module as
+    given). Only float32 is ported, so another ``compute_dtype`` raises
+    (the bfloat16 s2d forward is ROADMAP A13)."""
     if compute_dtype != "float32":
         raise ValueError(
             f"compute_dtype={compute_dtype!r}: the PyTorch forward runs "
             "float32 only"
         )
     if optimize:
-        s2d_fn, _div = maybe_build_s2d_apply(module, output="labels_s2d")
+        s2d_fn, _div = maybe_build_s2d_apply(module, output=s2d_output)
         if s2d_fn is not None:
             return s2d_fn, "s2d"
         if isinstance(module, UNetModule):
             return fold_batchnorm(module), "folded"
     return module, "parity"
+
+
+class StagedPipeline:
+    """Inference over uint8 image batches in three stages (forward,
+    conversion, graph search), counterpart of JAX ``StagedPipeline``, so
+    that a caller can time each stage. Every stage returns tensors on
+    ``device`` (None means CUDA).
+
+    With ``optimize`` and a U-Net the s2d transform takes, the forward is
+    the s2d probability forward for images whose H and W divide its
+    factor; other images, and every image without ``optimize``, go
+    through ``module`` itself. JAX falls back to the module as given too:
+    it folds BatchNorm in this pipeline only for DeepLabV3+, which is not
+    ported (ROADMAP A11). The graph stage runs the min-path on the
+    transposed image maps, which is the CUDA kernel ``minpath_delineate``
+    (B1) on the card.
+    """
+
+    def __init__(
+        self,
+        module: torch.nn.Module,
+        preprocess_fn: Callable,
+        bg_ilm: bool = True,
+        bg_csi: bool = False,
+        max_grad: int = 1,
+        optimize: bool = True,
+        compute_dtype: str = "float32",
+        minpath_tie_parity: str = "exact",
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        forward, kind = select_optimized_forward(
+            module, compute_dtype, optimize, s2d_output="probs"
+        )
+        self.kind = "s2d" if kind == "s2d" else "parity"
+        self._s2d = forward.to(self.device).eval() if kind == "s2d" else None
+        self._s2d_div = 2**forward.s2d_levels if kind == "s2d" else 1
+        self._module = module.to(self.device).eval()
+        self._preprocess = preprocess_fn
+        self._bg_ilm, self._bg_csi = bg_ilm, bg_csi
+        self._max_grad = max_grad
+        self._tie_parity = minpath_tie_parity
+
+    def predict_probs(self, images_u8) -> torch.Tensor:
+        """``(B, H, W, C)`` uint8 -> ``(B, H, W, num_classes)`` float32
+        probabilities."""
+        images = torch.as_tensor(images_u8).to(self.device, non_blocking=True)
+        h, w = images.shape[1], images.shape[2]
+        with torch.inference_mode(), float32_precision():
+            x = self._preprocess(images.to(torch.float32))
+            if self._s2d is not None and h % self._s2d_div == 0 and w % self._s2d_div == 0:
+                return self._s2d(x)
+            return self._module(x)
+
+    def convert(self, probs: torch.Tensor):
+        """probs -> ``(argmax labels u8 (B, H, W), one-hot class-first
+        categorical f32 (B, C, H, W), boundary maps u8 (B, C-1, H, W))``."""
+        with torch.inference_mode():
+            argmax_pred, categorical = boundary_ops.perform_argmax(probs, bin=True)
+            maps = boundary_ops.boundary_maps_from_labels(
+                argmax_pred, probs.shape[3], bg_ilm=self._bg_ilm, bg_csi=self._bg_csi
+            )
+            return argmax_pred.to(torch.uint8), categorical, maps
+
+    def graph_search(self, maps: torch.Tensor):
+        """Boundary maps ``(B, M, H, W)`` -> ``(rows u16 (B, M, W), region
+        masks u8 (B, H, W))``."""
+        with torch.inference_mode():
+            rows = minpath_ops.delineate_image_maps(
+                maps, max_grad=self._max_grad, tie_parity=self._tie_parity
+            )
+            masks = boundary_ops.create_area_mask(rows.to(torch.float32), maps.shape[-2])
+            return rows.to(torch.uint16), masks
 
 
 def make_fused_pipeline(

@@ -26,6 +26,9 @@ serving path, ``(B, M, Hb, Wb, 4)``, have the same pair:
 :func:`delineate_s2d_reference` and
 :func:`.minpath_cuda.delineate_cuda_s2d`, which reads the s2d layout in
 place; :func:`delineate_s2d` dispatches between them.
+
+:func:`delineate_float` is the DP on float maps with "fast" ties, plain
+PyTorch on every device as in JAX (an XLA scan there, no Pallas kernel).
 """
 
 from __future__ import annotations
@@ -432,6 +435,63 @@ def delineate_reference(
     for choice_col in reversed(choices):
         c = choice_col[batch_idx, r.long()].long()
         r = r + offsets_t[c]
+        rows.append(r)
+    rows.reverse()
+    return torch.stack(rows, dim=1).reshape(lead + (w,))
+
+
+def delineate_float(maps: torch.Tensor, max_grad: int = 1) -> torch.Tensor:
+    """Cost-optimal ("fast"-tie) column DP for float probability maps,
+    counterpart of JAX ``delineate_float`` (an XLA scan there, no Pallas
+    kernel).
+
+    Args:
+      maps: ``(..., W, H)`` float maps in [0, 1] (the reference's
+        ``prob_map / 255`` scale) in the transposed (column, row)
+        orientation, any number of leading dims.
+      max_grad: maximum row step per column.
+
+    The reference's edge weight ``2 - p_u - p_v`` adds the same 2 to every
+    path at a column, so the carried distance is only ``-(sum p)``, which
+    keeps float32 rounding at the scale of the path's reward. Candidates
+    that tie resolve by the heap's first-order preference (same row, from
+    below, from above), the order of the stacked candidates, through the
+    first index of ``min``. Subtraction, min and argmin are exact in IEEE
+    arithmetic, so every device gives the same rows.
+
+    Returns int32 rows ``(..., W)`` on the device of ``maps``.
+    """
+    if maps.ndim < 2:
+        raise ValueError("maps must have shape (..., W, H)")
+    lead = tuple(maps.shape[:-2])
+    w, h = maps.shape[-2], maps.shape[-1]
+    p = maps.reshape(-1, w, h).to(torch.promote_types(maps.dtype, torch.float32))
+    n = p.shape[0]
+    offsets_t = torch.tensor(
+        candidate_offsets(max_grad), dtype=torch.int32, device=p.device
+    )
+
+    def shifts(x):
+        out = [x]
+        out += [_shift_up(x, k) for k in range(1, max_grad + 1)]
+        out += [_shift_down(x, k) for k in range(1, max_grad + 1)]
+        return torch.stack(out, dim=0)  # (2g+1, N, H)
+
+    # Entry edge from the all-ones virtual column.
+    d, p_prev = -p[:, 0, :], p[:, 0, :]
+    choices = []
+    for j in range(1, w):
+        p_cur = p[:, j, :]
+        best, choice = torch.min(shifts(d - p_prev), dim=0)
+        choices.append(choice.to(torch.uint8))
+        d, p_prev = best - p_cur, p_cur
+
+    # Edge back into the virtual column; the first minimal row wins.
+    r = torch.argmin(d - p_prev, dim=-1).to(torch.int32)
+    batch_idx = torch.arange(n, device=p.device)
+    rows = [r]
+    for choice_col in reversed(choices):
+        r = r + offsets_t[choice_col[batch_idx, r.long()].long()]
         rows.append(r)
     rows.reverse()
     return torch.stack(rows, dim=1).reshape(lead + (w,))

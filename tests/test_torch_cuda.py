@@ -280,3 +280,63 @@ def test_enc_pair_kernel_variants(cuda, b, nh, nw, cin4, c4, tile):
     assert float((y2 - want_y2).abs().max()) <= PAIR_ATOL
     assert float((pooled - want_pool).abs().max()) <= PAIR_ATOL
     assert torch.equal(pooled, phase_max_pool(y2))
+
+
+MIN_AGREEMENT = 0.999  # card and CPU float32 forwards sum in other orders
+
+
+@pytest.mark.parametrize("tie_parity", ["exact", "fast"])
+def test_staged_pipeline_on_the_card_matches_the_cpu(cuda, tie_parity):
+    """The staged path on the card goes through B1; its rows and masks are
+    bit-equal to the CPU graph stage on the card's maps, and its labels
+    agree with the CPU pipeline's."""
+    from oct_image_segmentation_models_torch.models import get_model_class
+    from oct_image_segmentation_models_torch.ops.inference import StagedPipeline
+
+    from synth import make_layered_sample
+
+    h, w, c = 128, 192, 4
+    container = get_model_class("unet")(
+        input_channels=1, num_classes=c, image_height=h, image_width=w,
+        start_neurons=8, pool_layers=3,
+    )
+    module = container.build_model(generator=torch.Generator().manual_seed(3), device="cpu")
+    rng = np.random.default_rng(8)
+    images = np.stack([make_layered_sample(rng, h, w, c)[0] for _ in range(3)])[..., None]
+    cpu = StagedPipeline(
+        module, container.get_preprocess_input_fn(), minpath_tie_parity=tie_parity,
+        device="cpu",
+    )
+    labels_cpu, _, _ = cpu.convert(cpu.predict_probs(images))
+    card = StagedPipeline(
+        module, container.get_preprocess_input_fn(), minpath_tie_parity=tie_parity,
+        device=cuda,
+    )
+    assert card.kind == "s2d"
+    labels, categorical, maps = card.convert(card.predict_probs(images))
+    before = delineate_cuda.launches
+    rows, masks = card.graph_search(maps)
+    torch.cuda.synchronize()
+    assert delineate_cuda.launches == before + 1
+    assert float((labels.cpu() == labels_cpu).float().mean()) >= MIN_AGREEMENT
+    want_rows, want_masks = cpu.graph_search(maps.cpu())
+    assert torch.equal(rows.cpu(), want_rows)
+    assert torch.equal(masks.cpu(), want_masks)
+    assert categorical.dtype == torch.float32 and rows.dtype == torch.uint16
+
+
+def test_segment_maps_on_the_card_goes_through_b1(cuda):
+    from oct_image_segmentation_models_torch.min_path_processing import graph_search
+    from oct_image_segmentation_models_torch.ops.minpath import delineate_float
+
+    rng = np.random.default_rng(12)
+    maps = np.stack([_family_map(rng, f, 96, 64) for f in FAMILIES])
+    gs = graph_search.create_graph_structure((96, 64))
+    before = delineate_cuda.launches
+    rows, _, _ = graph_search.segment_maps(maps, None, gs, device=cuda)
+    assert delineate_cuda.launches == before + 1
+    want = delineate_reference(torch.from_numpy(maps)).numpy()
+    np.testing.assert_array_equal(rows, want.astype(np.uint16))
+    # The float DP is plain PyTorch: exact IEEE steps, the same rows.
+    fmaps = torch.from_numpy(rng.random((4, 96, 64)).astype(np.float32))
+    assert torch.equal(delineate_float(fmaps.to(cuda)).cpu(), delineate_float(fmaps))

@@ -1,6 +1,7 @@
 """The port stands alone: it imports without JAX, never imports the JAX
-package, defers h5py and every kernel build to first use, and never falls
-back to the CPU on its own."""
+package, defers h5py, matplotlib and every kernel build to first use (the
+card's machine has neither h5py nor matplotlib), and never falls back to
+the CPU on its own."""
 
 import ast
 import os
@@ -18,6 +19,8 @@ from oct_image_segmentation_models_torch.ops import minpath
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "oct_image_segmentation_models_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "oct_image_segmentation_models_tpu")
+# Imported only inside the functions that read or write files.
+LAZY = ("h5py", "matplotlib")
 
 _IMPORT_ALL = """
 import importlib, importlib.abc, pkgutil, sys
@@ -42,7 +45,6 @@ names = [port.__name__] + [
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-assert "h5py" not in sys.modules, "h5py must load only inside the checkpoint reader"
 print(len(names))
 """
 
@@ -50,7 +52,7 @@ print(len(names))
 def test_port_imports_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run(
-        [sys.executable, "-c", _IMPORT_ALL.format(forbidden=FORBIDDEN)],
+        [sys.executable, "-c", _IMPORT_ALL.format(forbidden=FORBIDDEN + LAZY)],
         cwd=REPO,
         env=env,
         capture_output=True,
@@ -58,7 +60,8 @@ def test_port_imports_with_jax_blocked():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 12
+    # Every module of the port, the workflows' included.
+    assert int(out.stdout.strip().splitlines()[-1]) >= 32
 
 
 def _sources():
@@ -78,8 +81,8 @@ def test_no_jax_package_import(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
-            if name == "h5py":
-                assert id(node) not in top_level, f"{path}: h5py at module level"
+            if name.split(".")[0] in LAZY:
+                assert id(node) not in top_level, f"{path}: {name} at module level"
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
