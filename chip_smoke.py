@@ -42,22 +42,38 @@ Phases, each of which raises on failure:
      ``create_area_mask`` of its rows, its labels the s2d path's on
      >= 0.999 of pixels. Then ``graph_search.segment_maps`` on one batch's
      uint8 maps (one B1 launch, the exact-tie rows again) and
-     ``delineate_float`` on the card against the CPU, rows equal.
+     ``delineate_float`` on the card against the CPU, rows equal;
+   - the train path, the device part of ``train_model``: first one train
+     step at batch 2 of 128x256 on the card and on the CPU from the same
+     weights, batch and dropout mask (loss, per-tensor gradients and BN
+     statistics within stated tolerances); then, from fresh weights, the
+     port's ``DataGenerator`` feeds ``train_step`` (focal + Dice, Adam 1e-3,
+     float32) for 120 steps at batch 8 of 512x1024, ``eval_step`` runs on a
+     validation batch and ``BNRefresher`` recomputes the statistics. The
+     loss must fall below the first step's and the statistics be finite
+     with var > 0. The trained weights are then served through the folded
+     path (B1) and the s2d path (B2) on held-out B-scans, rows against the
+     plain min-path, and their dice printed.
 4. Times, with CUDA events (median of several runs after warm-up): both
    pipelines per batch and their stages, each kernel per call beside its
    plain version, its yardstick and its bound (B3: on the tensor cores,
    the route it takes, and on the float32 CUDA cores), the min-path per
    column; the predict path's per-image stage times (host clock around
    each synchronised stage, as ``run_pipeline`` keeps them), the host
-   copy of one batch's outputs, and ``delineate_float``.
+   copy of one batch's outputs, and ``delineate_float``; the train step
+   (ms, B-scans/s, GFLOP and TFLOP/s, its split into forward with loss,
+   backward and optimizer, peak memory), the eval step, one
+   ``BNRefresher`` pass, and the training loop with its host batches.
 
 Each path's run also prints which variant of each kernel it took (the
 min-path choice store, the encoder pair's tile).
 
-The workflows' artifact writing (``predict``, ``evaluate_model``) needs
-h5py and matplotlib, which the card's machine lacks, so this script
-drives ``run_pipeline`` and the graph-search API only; the CPU tests
-(``tests/test_torch_predict_evaluate.py``) hold the artifacts.
+The workflows' artifact writing (``predict``, ``evaluate_model``,
+``train_model``) needs h5py and matplotlib, which the card's machine
+lacks, so this script drives their device parts (``run_pipeline``, the
+graph-search API, the train and eval steps and the BN refresher); the CPU
+tests (``tests/test_torch_predict_evaluate.py``,
+``tests/test_torch_training.py``) hold the artifacts.
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -163,9 +179,16 @@ def synthetic_maps(rng, family: str, n: int, w: int, h: int, max_step=2):
 def layered_bscans(rng, n: int, h: int, w: int, num_classes: int):
     """``(n, h, w, 1)`` uint8 B-scans: ``num_classes`` layers with smooth
     wiggling boundaries, a grey level per layer, Gaussian noise."""
+    return layered_dataset(rng, n, h, w, num_classes)[0]
+
+
+def layered_dataset(rng, n: int, h: int, w: int, num_classes: int):
+    """:func:`layered_bscans` with their labels: ``(images (n, h, w, 1)
+    uint8, labels (n, h, w, 1) uint8)``."""
     rows = np.arange(h)[:, None]
     levels = np.linspace(40, 220, num_classes)
     out = np.empty((n, h, w, 1), np.uint8)
+    out_labels = np.empty((n, h, w, 1), np.uint8)
     for i in range(n):
         bounds = []
         for cls in range(1, num_classes):
@@ -176,7 +199,8 @@ def layered_bscans(rng, n: int, h: int, w: int, num_classes: int):
         labels = (rows[None] >= bounds[:, None, :]).sum(0)
         image = levels[labels] + rng.normal(0, 8.0, size=(h, w))
         out[i, ..., 0] = np.clip(image, 0, 255).astype(np.uint8)
-    return out
+        out_labels[i, ..., 0] = labels
+    return out, out_labels
 
 
 def phase_environment() -> dict:
@@ -808,6 +832,337 @@ def predict_path_times(predict: dict, volume: np.ndarray) -> dict:
     return out
 
 
+TRAIN_IMAGES = 32  # four batches of 8 per epoch
+TRAIN_STEPS = 120  # the JAX bench's brief training (bench.py:543)
+TRAIN_TIMED = 10
+TRAIN_WARMUP = 2
+CHECK_H, CHECK_W, CHECK_BATCH = 128, 256, 2
+# One train step on the card against the CPU, same weights, batch and
+# dropout mask, float32 on both (TF32 off): the losses and the BN
+# statistics agree to float32 sums in another order.
+STEP_LOSS_RTOL = 1e-4
+STEP_STAT_ATOL = 1e-5
+# The gradients do not agree that closely: through batch-statistics
+# BatchNorm (var = E[x^2] - E[x]^2) and near-tied max-pool windows and ReLU
+# gates, a float32 gradient can be percents of its tensor's largest entry
+# off the float64 one, on the CPU and on the card alike, and which side is
+# closer changes from tensor to tensor. So both are held against the
+# float64 gradient of the same step on the CPU, each tensor relative to its
+# largest float64 entry: the card's worst tensor within STEP_GRAD_FACTOR
+# times the CPU float32's worst, or STEP_GRAD_FLOOR.
+STEP_GRAD_FACTOR = 4.0
+STEP_GRAD_FLOOR = 2e-3
+# The bias of a conv that feeds a batch-statistics BatchNorm has an exact
+# gradient of 0: float noise on both sides, held below this share of the
+# largest gradient.
+ZERO_GRAD_SHARE = 1e-4
+
+
+def _train_objects(module, seed: int):
+    from oct_image_segmentation_models_torch.ops import losses, metrics
+    from oct_image_segmentation_models_torch.parallel.train_step import (
+        build_optimizer,
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+
+    loss_fn = losses.custom_loss_objects["focal_dice_loss"]["function"](
+        num_classes=NUM_CLASSES, is_y_true_sparse=True
+    )
+    metric_fn = metrics.dice_coef_macro(True, NUM_CLASSES)
+    state = create_train_state(module, build_optimizer("adam", {"learning_rate": 1e-3}))
+    return (
+        state,
+        make_train_step(module, loss_fn, metric_fn),
+        make_eval_step(module, loss_fn, metric_fn),
+        loss_fn,
+        metric_fn,
+    )
+
+
+def check_train_step_card_vs_cpu(rng, seed: int) -> dict:
+    """One full-width train step at batch 2 of 128x256 on the card, on the
+    CPU in float32 and on the CPU in float64, from the same weights, batch
+    and dropout mask."""
+    from oct_image_segmentation_models_torch._device import float32_precision
+    from oct_image_segmentation_models_torch.models import get_model_class
+    from oct_image_segmentation_models_torch.models import unet as unet_module
+
+    container = get_model_class("unet")(
+        input_channels=1, num_classes=NUM_CLASSES, image_height=CHECK_H,
+        image_width=CHECK_W, start_neurons=32, pool_layers=4, conv_layers=2,
+    )
+    card = container.build_model(generator=torch.Generator().manual_seed(seed + 1), device="cuda")
+    modules = {
+        "card": card,
+        "cpu": copy.deepcopy(card).cpu(),
+        "cpu64": copy.deepcopy(card).cpu().double(),
+    }
+    images, labels = layered_dataset(rng, CHECK_BATCH, CHECK_H, CHECK_W, NUM_CLASSES)
+    x = torch.from_numpy(images.astype(np.float32) / 255.0)
+    y = torch.from_numpy(labels)
+    masks = {}
+
+    def shared_mask(t, generator):
+        if "mask" not in masks:
+            draw = torch.rand(t.shape, generator=torch.Generator().manual_seed(seed))
+            masks["mask"] = draw < 1.0 - unet_module.DROPOUT_RATE
+        return masks["mask"].to(t.device)
+
+    drawn = unet_module.dropout_mask
+    unet_module.dropout_mask = shared_mask
+    try:
+        results = {}
+        with float32_precision():
+            for name, module in modules.items():
+                dev = next(module.parameters()).device
+                state, step, _, _, _ = _train_objects(module, seed)
+                # the optimizer runs after the backward: the step's
+                # gradients are still on the parameters afterwards
+                _, loss, metric = step(state, x.to(dev), y.to(dev), None)
+                grads = {
+                    k: p.grad.detach().cpu().double() for k, p in module.named_parameters()
+                }
+                stats = {
+                    k: v.detach().cpu() for k, v in module.state_dict().items() if "running" in k
+                }
+                results[name] = (float(loss), float(metric), grads, stats)
+    finally:
+        unet_module.dropout_mask = drawn
+    (l_card, m_card, g_card, s_card) = results["card"]
+    (l_cpu, m_cpu, g_cpu, s_cpu) = results["cpu"]
+    g64 = results["cpu64"][2]
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    gmax = max(float(g.abs().max()) for g in g64.values())
+    zero_grad, rel = 0.0, []
+    for k, g in g64.items():
+        if k.startswith("blocks.") and k.endswith("conv.bias"):
+            zero_grad = max(zero_grad, float(g_cpu[k].abs().max()), float(g_card[k].abs().max()))
+            continue
+        scale = float(g.abs().max())
+        rel.append((
+            float((g_card[k] - g).abs().max()) / scale,
+            float((g_cpu[k] - g).abs().max()) / scale,
+            k,
+        ))
+    card_worst, cpu_worst = max(r[0] for r in rel), max(r[1] for r in rel)
+    allowed = max(STEP_GRAD_FACTOR * cpu_worst, STEP_GRAD_FLOOR)
+    stat_err = max(float((s_card[k] - s_cpu[k]).abs().max()) for k in s_cpu)
+    print(
+        f"train step card vs CPU (start_neurons 32, batch {CHECK_BATCH} x {CHECK_H}x{CHECK_W}, "
+        f"float32): loss {l_card:.6f} / {l_cpu:.6f} (rel {loss_err:.2e}, tolerance "
+        f"{STEP_LOSS_RTOL:g}), metric {m_card:.6f} / {m_cpu:.6f}, BN statistics max |diff| "
+        f"{stat_err:.2e} (tolerance {STEP_STAT_ATOL:g}), pre-BN conv bias gradients "
+        f"{zero_grad / gmax:.2e} of max |g| (bound {ZERO_GRAD_SHARE:g}); gradients against "
+        f"the CPU float64 step, worst tensor: card {card_worst:.2e}, CPU float32 "
+        f"{cpu_worst:.2e} of its max (allowed {allowed:.2e})"
+    )
+    for card_rel, cpu_rel, k in sorted(rel, reverse=True)[:3]:
+        print(f"  gradient {k}: card {card_rel:.2e}, CPU float32 {cpu_rel:.2e} of its max off float64")
+    if not (np.isfinite(l_card) and loss_err <= STEP_LOSS_RTOL):
+        raise AssertionError(f"card train-step loss {l_card} off the CPU's {l_cpu}")
+    if card_worst > allowed or zero_grad > ZERO_GRAD_SHARE * gmax:
+        raise AssertionError(
+            f"card gradients off float64: {card_worst} (allowed {allowed}), zero share "
+            f"{zero_grad / gmax}"
+        )
+    if stat_err > STEP_STAT_ATOL:
+        raise AssertionError(f"card BN statistics off the CPU's by {stat_err}")
+    return {
+        "loss_rel_err": loss_err,
+        "grad_card_worst_rel": card_worst,
+        "grad_cpu_worst_rel": cpu_worst,
+        "zero_grad_share": zero_grad / gmax,
+        "bn_stat_max_abs_err": stat_err,
+    }
+
+
+def train_flop(step, state, x, y, generator) -> int:
+    """FLOPs (2 per multiply-add) of one train step's convolutions,
+    forward and backward, counted by ``torch.utils.flop_counter``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        step(state, x, y, generator)
+    return counter.get_total_flops()
+
+
+def phase_train_path(rng, seed: int) -> dict:
+    """The training slice's device part at full width: the port's
+    DataGenerator feeds ``train_step`` (focal + Dice, Adam 1e-3, float32)
+    for ``TRAIN_STEPS`` steps at batch 8 of 512x1024, then ``eval_step``
+    and the precise-BN ``BNRefresher``; the trained weights are served
+    through the folded path (B1) and the s2d path (B2)."""
+    from oct_image_segmentation_models_torch._device import float32_precision
+    from oct_image_segmentation_models_torch.common.data_generator import DataGenerator
+    from oct_image_segmentation_models_torch.common.model_io import LoadedModel
+    from oct_image_segmentation_models_torch.models.unet import fold_batchnorm
+    from oct_image_segmentation_models_torch.ops.bn_refresh import BNRefresher
+    from oct_image_segmentation_models_torch.ops.inference import make_fused_pipeline
+    from oct_image_segmentation_models_torch.parallel.train_step import load_batch_stats
+    from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
+
+    out = {"step_check": check_train_step_card_vs_cpu(rng, seed)}
+    container, module = build_unet(seed)
+    preprocess = container.get_preprocess_input_fn()
+    train_x, train_y = layered_dataset(rng, TRAIN_IMAGES, H, W, NUM_CLASSES)
+    val_x, val_y = layered_dataset(rng, BATCH, H, W, NUM_CLASSES)
+    test_x, test_y = layered_dataset(rng, BATCH, H, W, NUM_CLASSES)
+    gen = DataGenerator(train_x, train_y, BATCH, [], "none", (), False, preprocess, seed=seed)
+    val_gen = DataGenerator(val_x, val_y, BATCH, [], "none", (), False, preprocess, seed=seed)
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+
+    def upload(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().cuda(non_blocking=True)
+
+    def batches():
+        while True:
+            for bx, by in gen:
+                yield upload(bx), upload(by)
+            gen.on_epoch_end()
+
+    stream = batches()
+    with float32_precision():
+        state, step, evaluate, loss_fn, metric_fn = _train_objects(module, seed)
+        losses = []
+        fixed = [next(stream) for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+        for x, y in fixed[:TRAIN_WARMUP]:
+            _, loss, _ = step(state, x, y, generator)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for x, y in fixed[TRAIN_WARMUP:]:
+            _, loss, _ = step(state, x, y, generator)
+            losses.append(loss)
+        t1.record()
+        t1.synchronize()
+        out["step_ms"] = t0.elapsed_time(t1) / TRAIN_TIMED
+        out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        out["bscans_per_s"] = BATCH / out["step_ms"] * 1e3
+
+        # The step's split, by CUDA events around the three phases of the
+        # same body: forward with loss and metric, backward, optimizer.
+        splits = {"forward_loss": [], "backward": [], "optimizer": []}
+        for x, y in fixed[TRAIN_WARMUP:TRAIN_WARMUP + 5]:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            module.train()
+            pred = module(x, generator=generator)
+            loss = loss_fn(y, pred)
+            with torch.no_grad():
+                metric_fn(y, pred)
+            ev[1].record()
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            ev[2].record()
+            state.optimizer.step()
+            state.step += 1
+            ev[3].record()
+            ev[3].synchronize()
+            losses.append(loss.detach())
+            for i, key in enumerate(splits):
+                splits[key].append(ev[i].elapsed_time(ev[i + 1]))
+        for key, values in splits.items():
+            out[f"{key}_ms"] = statistics.median(values)
+        flop = train_flop(step, state, *fixed[0], generator)
+        out["gflop_per_step"] = flop / 1e9
+        out["tflops"] = flop / 1e9 / out["step_ms"]
+        out["bound_ms"] = flop / FP32_FLOPS_PER_S * 1e3
+        profiled = profile_pipeline(lambda b: step(state, b[0], b[1], generator), fixed[1], calls=2)
+        out.update({f"profile_{k}": v for k, v in profiled.items()})
+
+        # Training on through the generator, host batches and uploads included.
+        done = TRAIN_WARMUP + TRAIN_TIMED + 5 + 1 + 3
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        for _ in range(TRAIN_STEPS - done):
+            x, y = next(stream)
+            _, loss, _ = step(state, x, y, generator)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        out["loop_s"] = time.perf_counter() - t_host
+        out["loop_steps"] = TRAIN_STEPS - done
+        out["loop_bscans_per_s"] = BATCH * out["loop_steps"] / out["loop_s"]
+        losses = torch.stack(losses).cpu().numpy()
+        out["losses_first_last"] = (float(losses[0]), float(losses[-1]))
+        out["steps"] = int(state.step)
+
+        vx, vy = next(iter(val_gen))
+        vx, vy = upload(vx), upload(vy)
+        val_loss, val_metric = evaluate(state, vx, vy)
+        out["eval_ms"] = time_cuda(lambda: evaluate(state, vx, vy), iters=3, reps=3)
+        out["val_loss"], out["val_metric"] = float(val_loss), float(val_metric)
+
+        stat_batches = [
+            upload(preprocess(train_x[i:i + BATCH].astype(np.float32)))
+            for i in range(0, TRAIN_IMAGES, BATCH)
+        ]
+        refresher = BNRefresher(module)
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter()
+        precise = refresher(
+            None, stat_batches, generator=torch.Generator(device="cuda").manual_seed(seed)
+        )
+        torch.cuda.synchronize()
+        out["bn_refresh_ms"] = (time.perf_counter() - t_ref) * 1e3
+    print(
+        f"train path: {out['steps']} steps at batch {BATCH} x {H}x{W}, loss "
+        f"{out['losses_first_last'][0]:.4f} -> {out['losses_first_last'][1]:.4f}; eval "
+        f"loss {out['val_loss']:.4f}, dice_coef_macro {out['val_metric']:.4f}"
+    )
+    first, last = out["losses_first_last"]
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"training loss did not fall: {first} -> {last}")
+    bad = [k for k, v in precise.items() if not torch.isfinite(v).all()]
+    bad += [k for k, v in precise.items() if k.endswith("running_var") and not (v > 0).all()]
+    if bad:
+        raise AssertionError(f"precise BN statistics not finite or var <= 0: {bad[:4]}")
+    load_batch_stats(module, precise)
+    module.eval()
+
+    # Serving the trained, precise-BN weights: folded path (B1), s2d (B2).
+    config = container.get_config()
+    folded = make_fused_pipeline(
+        fold_batchnorm(module), preprocess, minpath_tie_parity="fast",
+        return_maps=False, device="cuda",
+    )
+    segmenter = VolumeSegmenter(
+        LoadedModel("unet", module, config), config, batch_size=BATCH, device="cuda"
+    )
+    if segmenter.kind != "s2d":
+        raise AssertionError(f"VolumeSegmenter chose {segmenter.kind} for the trained U-Net")
+    reset_counts()
+    lab_fold, rows_fold = run_volume(folded, test_x)
+    lab_s2d, rows_s2d = segmenter.segment_volume(test_x)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"train path serving: launches {counts}, variants {read_variants()}")
+    if counts["minpath_dp"] < 1 or counts["minpath_dp_s2d"] < 1 or counts["s2d_enc_pair"]:
+        raise AssertionError(f"serving the trained weights launched {counts}")
+    check_rows("fast", lab_fold, rows_fold)
+    check_rows("fast", lab_s2d, rows_s2d)
+    truth = test_y[..., 0]
+    for name, lab in (("folded", lab_fold), ("s2d", lab_s2d)):
+        dice = float(np.mean([
+            2 * ((lab == c) & (truth == c)).sum() / ((lab == c).sum() + (truth == c).sum())
+            for c in range(NUM_CLASSES)
+        ]))
+        out[f"served_dice_{name}"] = dice
+    out["served_agreement"] = float((lab_fold == lab_s2d).mean())
+    out["launches"] = {k: counts[k] for k in ("minpath_dp", "minpath_dp_s2d")}
+    print(
+        f"trained weights served on {BATCH} held-out B-scans: dice_coef_macro folded "
+        f"{out['served_dice_folded']:.4f}, s2d {out['served_dice_s2d']:.4f}; folded vs "
+        f"s2d labels agreement {out['served_agreement']:.6f}"
+    )
+    return out
+
+
 def kernel_bound_ms(n: int, w: int, h: int, max_grad: int, exact: bool) -> tuple:
     """Least time for the min-path function on these shapes: bytes (maps
     read once, int32 rows written once) over HBM bandwidth, against int32
@@ -1066,6 +1421,7 @@ def main(argv=None) -> int:
     predict = phase_predict_path(model, rng, volume, s2d["labels"])
     times = phase_times(model, s2d, folded, fused, parity_pair["flagship_args"])
     times.update(predict_path_times(predict, volume))
+    train = phase_train_path(rng, args.seed)
 
     card = env["card"]
     for path in ("s2d", "folded"):
@@ -1147,18 +1503,47 @@ def main(argv=None) -> int:
         f"({times['b3_bound_by']}), {times['b3_bound_fp32_ms']:.3f} ms on the "
         f"float32 CUDA cores ({times['b3_bound_fp32_by']})"
     )
+    print(
+        f"[{card}] train step (batch {BATCH} x {H}x{W}, start_neurons 32, float32, TF32 "
+        f"off, Adam, focal+Dice): {train['step_ms']:.3f} ms/step = "
+        f"{train['bscans_per_s']:.2f} B-scans/s; {train['gflop_per_step']:.1f} GFLOP/step, "
+        f"{train['tflops']:.2f} TFLOP/s (float32 bound {train['bound_ms']:.3f} ms); split "
+        f"forward+loss {train['forward_loss_ms']:.3f} ms, backward "
+        f"{train['backward_ms']:.3f} ms, optimizer {train['optimizer_ms']:.3f} ms; peak "
+        f"memory {train['peak_mib']:.1f} MiB"
+    )
+    print(
+        f"[{card}] profiled train step: wall {train['profile_profiled_wall_ms_per_batch']:.3f} "
+        f"ms/step, device {train['profile_device_ms_per_batch']:.3f} ms/step, busy share "
+        + ("not measured" if train["profile_device_busy_share"] is None
+           else f"{train['profile_device_busy_share']:.4f}")
+    )
+    for name, ms in train["profile_top_kernels_ms_per_batch"]:
+        print(f"  {ms:9.3f} ms/step  {name[:100]}")
+    print(
+        f"[{card}] train loop with DataGenerator and pinned uploads: {train['loop_steps']} "
+        f"steps in {train['loop_s']:.3f} s = {train['loop_bscans_per_s']:.2f} B-scans/s; "
+        f"eval step {train['eval_ms']:.3f} ms/batch; one BNRefresher pass over "
+        f"{TRAIN_IMAGES} B-scans {train['bn_refresh_ms']:.3f} ms"
+    )
     minpath_src = "oct_image_segmentation_models_torch/csrc/minpath.cu"
     tpu_minpath = "oct_image_segmentation_models_tpu/ops/minpath_pallas.py"
     kernels = []
     for name, launches, err, key, replaces in (
         (
             "minpath_dp",
-            folded["launches"] + predict["launches"],
+            folded["launches"] + predict["launches"] + train["launches"]["minpath_dp"],
             parity["max_abs_err"],
             "b1",
             f"{tpu_minpath}:487",
         ),
-        ("minpath_dp_s2d", s2d["launches"], parity_s2d["max_abs_err"], "b2", f"{tpu_minpath}:533"),
+        (
+            "minpath_dp_s2d",
+            s2d["launches"] + train["launches"]["minpath_dp_s2d"],
+            parity_s2d["max_abs_err"],
+            "b2",
+            f"{tpu_minpath}:533",
+        ),
     ):
         line = kernel_line(
             name, minpath_src, replaces, launches, err,
@@ -1177,7 +1562,10 @@ def main(argv=None) -> int:
             line["launches_folded_path"] = folded["launches"]
             line["launches_predict_path"] = predict["launches"]
             line["predict_path_store_launches"] = predict["store_launches"]
+            line["launches_train_path"] = train["launches"]["minpath_dp"]
         if key == "b2":
+            line["launches_s2d_path"] = s2d["launches"]
+            line["launches_train_path"] = train["launches"]["minpath_dp_s2d"]
             line["transpose_then_b1_ms"] = times["b2_yardstick_fast_ms"]
             line["transpose_then_b1_ms_exact"] = times["b2_yardstick_exact_ms"]
         kernels.append(line)
@@ -1213,6 +1601,7 @@ def main(argv=None) -> int:
                 if k not in ("loaded", "config", "preprocess")
             },
             "times": times,
+            "train_path": train,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start,
         }

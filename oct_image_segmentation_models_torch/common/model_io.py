@@ -2,7 +2,10 @@
 
 - :func:`state_dict_from_flax` turns the JAX package's U-Net ``variables``
   (nested dicts of numpy arrays, ``params`` and ``batch_stats``; plain or
-  BN-folded) into a ``state_dict`` of the port's :class:`UNetModule`.
+  BN-folded) into a ``state_dict`` of the port's :class:`UNetModule`;
+  :func:`flax_from_state_dict` is its inverse.
+- :func:`save_model` writes a ``state_dict`` as the JAX package's native
+  HDF5 checkpoint, which the JAX package's ``load_model`` reads.
 - :func:`read_checkpoint` reads the JAX package's native HDF5 checkpoint
   (``format="octseg-tpu-v1"``: model name and config as attributes, one
   dataset per variable under its collection group, keyed by its tree
@@ -104,6 +107,76 @@ def state_dict_from_flax(variables_np: dict) -> dict:
             out[f"{prefix}.bn.running_mean"] = t(bstats["mean"])
             out[f"{prefix}.bn.running_var"] = t(bstats["var"])
     return out
+
+
+def flax_from_state_dict(state_dict: dict) -> dict:
+    """The port's ``UNetModule`` state_dict -> Flax U-Net ``variables``
+    (nested dicts of float32 numpy arrays), the inverse of
+    :func:`state_dict_from_flax`: ``blocks.{i}`` -> ``ConvBlock_i``, OIHW ->
+    HWIO, ``bn.weight``/``bn.bias`` -> ``BatchNorm_0`` ``scale``/``bias``
+    and the running statistics -> ``batch_stats`` ``mean``/``var``. A
+    folded state_dict gives ``{"params": ...}`` alone."""
+    params, stats = {}, {}
+    bn_names = {
+        "weight": ("params", "scale"),
+        "bias": ("params", "bias"),
+        "running_mean": ("batch_stats", "mean"),
+        "running_var": ("batch_stats", "var"),
+    }
+    for key, value in state_dict.items():
+        a = np.asarray(torch.as_tensor(value).detach().cpu(), dtype=np.float32)
+        parts = key.split(".")
+        if parts[0] == "head":
+            conv = params.setdefault("Conv_0", {})
+        elif parts[0] == "blocks":
+            name = f"ConvBlock_{int(parts[1])}"
+            if parts[2] == "bn":
+                collection, leaf = bn_names[parts[3]]
+                tree = params if collection == "params" else stats
+                tree.setdefault(name, {}).setdefault("BatchNorm_0", {})[leaf] = a
+                continue
+            conv = params.setdefault(name, {}).setdefault("Conv_0", {})
+        else:
+            raise ValueError(f"unexpected U-Net state_dict entry {key!r}")
+        if parts[-1] == "weight":
+            conv["kernel"] = np.ascontiguousarray(a.transpose(2, 3, 1, 0))  # OIHW -> HWIO
+        else:
+            conv["bias"] = a
+    variables = {"params": params}
+    if stats:
+        variables["batch_stats"] = stats
+    return variables
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flatten(value, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
+
+
+def save_model(path, model_name: str, model_config: dict, state_dict: dict) -> None:
+    """Write ``state_dict`` as a native checkpoint (``format`` =
+    ``octseg-tpu-v1``): model name and JSON config as attributes, one
+    dataset per Flax variable under its collection group, keyed by its
+    tree path, as the JAX package's ``save_model`` writes it."""
+    import h5py
+
+    def _s_attr(value: str) -> np.ndarray:
+        data = value.encode("utf-8")
+        return np.array(data, dtype=f"S{max(len(data), 1)}")
+
+    with h5py.File(Path(path), "w") as f:
+        f.attrs["model_name"] = _s_attr(model_name)
+        f.attrs["model_config"] = _s_attr(json.dumps(model_config))
+        f.attrs["format"] = _s_attr(CHECKPOINT_FORMAT.decode())
+        for collection, tree in flax_from_state_dict(state_dict).items():
+            grp = f.create_group(collection)
+            for key, value in _flatten(tree).items():
+                grp.create_dataset(key, data=value)
 
 
 def is_folded(state_dict: dict) -> bool:

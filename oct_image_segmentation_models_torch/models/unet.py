@@ -4,8 +4,7 @@ Structure (op for op the JAX ``UNetModule``):
 - ``pool_layers`` encoder levels of ``conv_layers`` x (Conv ``enc_kernel``
   -> BatchNorm -> ReLU) followed by a 2x2 VALID max-pool; filters
   ``start_neurons * 2**level``;
-- bottleneck convs at ``start_neurons * 2**pool_layers`` (its Dropout(0.5)
-  is the identity at inference);
+- bottleneck convs at ``start_neurons * 2**pool_layers`` + Dropout(0.5);
 - decoder levels of nearest-neighbour 2x upsample -> Conv ``dec_kernel``
   -> BN -> ReLU -> skip concat -> ``conv_layers`` conv blocks;
 - 1x1 Conv + softmax head in float32.
@@ -15,9 +14,24 @@ bottom/right, as XLA does. BatchNorm uses eps 1e-3 and the Flax formula
 ``(x - mean) * (rsqrt(var + eps) * scale) + bias``. ``ConvBlock_i`` of the
 Flax tree is ``blocks[i]`` here, in the same creation order.
 
+Modes, as the JAX module's ``training`` and ``stats_mode`` flags:
+- ``module.eval()``: BatchNorm normalises with its running statistics and
+  Dropout is off (inference);
+- ``module.train()``: BatchNorm normalises with the batch statistics and
+  updates its running statistics with momentum 0.99, Dropout is on;
+- ``forward(x, stats_mode=True)`` in eval mode: batch statistics and the
+  running update with Dropout off (the precise-BN collection forward of
+  ``ops/bn_refresh.py``).
+
+Batch statistics follow Flax 0.12: mean and ``var = max(0, E[x^2] -
+E[x]^2)`` over (B, H, W), the biased variance; the running update is
+``0.99 * running + 0.01 * batch`` for both. ``nn.BatchNorm2d`` is not used:
+its running variance is the unbiased one and its momentum is the other
+way round. The dropout mask comes from :func:`dropout_mask` and a
+``torch.Generator`` on the module's device.
+
 The module's public layout is the JAX one: ``(B, H, W, C)`` input,
-channels-last probabilities out. Inside, it runs NCHW. Only inference is
-ported; training is ROADMAP A8.
+channels-last probabilities out. Inside, it runs NCHW.
 """
 
 from __future__ import annotations
@@ -34,6 +48,8 @@ from .base_model import BaseModel
 
 UNET_MODEL_NAME = "unet"
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
+DROPOUT_RATE = 0.5
 
 
 def _same_pads(kernel: Sequence[int]) -> tuple:
@@ -44,11 +60,17 @@ def _same_pads(kernel: Sequence[int]) -> tuple:
     return (left, kw - 1 - left, top, kh - 1 - top)
 
 
-class BatchNorm(nn.Module):
-    """Inference BatchNorm with the Flax formula and eps 1e-3.
+def dropout_mask(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Keep-mask of the bottleneck Dropout(0.5) for ``x`` (NCHW): True
+    where a uniform draw from ``generator`` is below the keep probability,
+    as ``jax.random.bernoulli`` keeps. The one place the mask is drawn."""
+    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    return u < 1.0 - DROPOUT_RATE
 
-    Keras momentum 0.99 (torch momentum 0.01) matters only to training,
-    which is not ported yet."""
+
+class BatchNorm(nn.Module):
+    """BatchNorm with the Flax formula and eps 1e-3 (see the module
+    docstring for the batch-statistics mode)."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -57,9 +79,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        y = (x - self.running_mean[:, None, None]) * mul[:, None, None]
+    def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
+        if batch_stats:
+            mean = x.mean(dim=(0, 2, 3))
+            mean2 = (x * x).mean(dim=(0, 2, 3))
+            # torch.maximum, not clamp: at var == 0 the gradient splits in
+            # two as jnp.maximum's does.
+            var = torch.maximum(mean2 - mean * mean, torch.zeros((), device=x.device))
+            with torch.no_grad():
+                self.running_mean.copy_(
+                    BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean
+                )
+                self.running_var.copy_(
+                    BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var
+                )
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (x - mean[:, None, None]) * mul[:, None, None]
         return y + self.bias[:, None, None]
 
 
@@ -82,12 +119,12 @@ class ConvBlock(nn.Module):
         self.needs_pad = not symmetric
         self.bn = BatchNorm(features) if use_bn else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
         if self.needs_pad:
             x = F.pad(x, self.pads)
         x = self.conv(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = self.bn(x, batch_stats)
         return F.relu(x)
 
 
@@ -140,29 +177,37 @@ class UNetModule(nn.Module):
         self.head = nn.Conv2d(ch, num_classes, 1)
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        stats_mode: bool = False,
+        generator: torch.Generator = None,
+    ) -> torch.Tensor:
         """``(B, H, W, C)`` float input -> ``(B, H, W, classes)`` float32
-        softmax probabilities."""
-        if self.training:
-            raise NotImplementedError(
-                "the PyTorch U-Net runs inference only; training is ROADMAP A8"
-            )
-        x = x.to(torch.float32).permute(0, 3, 1, 2)
+        softmax probabilities. In train mode the dropout mask is drawn from
+        ``generator`` (a generator on the input's device; None uses the
+        device's default generator). The module computes in its
+        parameters' dtype, float32 unless it was converted."""
+        batch_stats = self.training or stats_mode
+        x = x.to(self.head.weight.dtype).permute(0, 3, 1, 2)
         blocks = iter(self.blocks)
         skips = []
         for _ in range(self.pool_layers):
             for _ in range(self.conv_layers):
-                x = next(blocks)(x)
+                x = next(blocks)(x, batch_stats)
             skips.append(x)
             x = F.max_pool2d(x, 2, 2)
         for _ in range(self.conv_layers):
-            x = next(blocks)(x)
+            x = next(blocks)(x, batch_stats)
+        if self.training:
+            keep = dropout_mask(x, generator)
+            x = torch.where(keep, x / (1.0 - DROPOUT_RATE), torch.zeros((), device=x.device))
         for level in reversed(range(self.pool_layers)):
             x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
-            x = next(blocks)(x)
+            x = next(blocks)(x, batch_stats)
             x = torch.cat([x, skips[level]], dim=1)
             for _ in range(self.conv_layers):
-                x = next(blocks)(x)
+                x = next(blocks)(x, batch_stats)
         x = self.head(x)
         return torch.softmax(x, dim=1).permute(0, 2, 3, 1)
 

@@ -340,3 +340,80 @@ def test_segment_maps_on_the_card_goes_through_b1(cuda):
     # The float DP is plain PyTorch: exact IEEE steps, the same rows.
     fmaps = torch.from_numpy(rng.random((4, 96, 64)).astype(np.float32))
     assert torch.equal(delineate_float(fmaps.to(cuda)).cpu(), delineate_float(fmaps))
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """One precise-BN refresh and one train step (focal + Dice, Adam) on
+    the card and on the CPU from the same weights, batch and dropout mask,
+    float32 on both: loss rel 1e-4, BN statistics atol 1e-5. Gradients
+    through batch-statistics BatchNorm and near-tied max-pool windows are
+    ill-conditioned in float32 on either side, so both are held against
+    the CPU's float64 gradient of the same step, relative to each tensor's
+    largest entry: the card's worst tensor within 4x the CPU float32's
+    worst, or 2e-3. The biases of convs that feed a batch-statistics BatchNorm
+    have an exact gradient of 0: below 1e-4 of the largest gradient."""
+    import copy
+
+    from oct_image_segmentation_models_torch._device import float32_precision
+    from oct_image_segmentation_models_torch.models import get_model_class
+    from oct_image_segmentation_models_torch.models import unet as unet_module
+    from oct_image_segmentation_models_torch.ops import losses, metrics
+    from oct_image_segmentation_models_torch.ops.bn_refresh import BNRefresher
+    from oct_image_segmentation_models_torch.parallel import train_step as ts
+
+    from synth import make_layered_sample
+
+    h, w, c = 64, 96, 4
+    container = get_model_class("unet")(
+        input_channels=1, num_classes=c, image_height=h, image_width=w,
+        start_neurons=8, pool_layers=3,
+    )
+    card = container.build_model(generator=torch.Generator().manual_seed(4), device=cuda)
+    modules = {
+        "card": card, "cpu": copy.deepcopy(card).cpu(), "cpu64": copy.deepcopy(card).cpu().double()
+    }
+    rng = np.random.default_rng(9)
+    samples = [make_layered_sample(rng, h, w, c) for _ in range(2)]
+    x = torch.from_numpy(np.stack([s[0] for s in samples])[..., None] / 255.0).float()
+    y = torch.from_numpy(np.stack([s[1] for s in samples])[..., None])
+    mask = {}
+
+    def shared_mask(t, generator):
+        if "m" not in mask:
+            mask["m"] = torch.rand(t.shape, generator=torch.Generator().manual_seed(1)) < 0.5
+        return mask["m"].to(t.device)
+
+    monkeypatch.setattr(unet_module, "dropout_mask", shared_mask)
+    loss_fn = losses.focal_dice_loss(num_classes=c)
+    metric_fn = metrics.dice_coef_macro(True, c)
+    out = {}
+    with float32_precision():
+        for name, module in modules.items():
+            dev = next(module.parameters()).device
+            # before the step: Adam moves the pre-BN conv biases by float
+            # noise, which the refreshed means would see
+            precise = BNRefresher(module, deterministic=True)(None, [x.to(dev)])
+            state = ts.create_train_state(module, ts.build_optimizer("adam", {}))
+            step = ts.make_train_step(module, loss_fn, metric_fn)
+            _, loss, _ = step(state, x.to(dev), y.to(dev), None)
+            grads = {k: p.grad.cpu().double() for k, p in module.named_parameters()}
+            stats = {k: v.cpu().float() for k, v in ts.batch_stats(module).items()}
+            out[name] = (float(loss), grads, stats, {k: v.cpu().float() for k, v in precise.items()})
+    (l_card, g_card, s_card, p_card), (l_cpu, g_cpu, s_cpu, p_cpu) = out["card"], out["cpu"]
+    g64 = out["cpu64"][1]
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    gmax = max(float(g.abs().max()) for g in g64.values())
+    card_worst, cpu_worst = 0.0, 0.0
+    for k, g in g64.items():
+        if k.startswith("blocks.") and k.endswith("conv.bias"):
+            assert float(g_card[k].abs().max()) <= 1e-4 * gmax, k
+            assert float(g_cpu[k].abs().max()) <= 1e-4 * gmax, k
+        else:
+            scale = float(g.abs().max())
+            card_worst = max(card_worst, float((g_card[k] - g).abs().max()) / scale)
+            cpu_worst = max(cpu_worst, float((g_cpu[k] - g).abs().max()) / scale)
+    assert card_worst <= max(4 * cpu_worst, 2e-3), (card_worst, cpu_worst)
+    for k in s_cpu:
+        assert float((s_card[k] - s_cpu[k]).abs().max()) <= 1e-5, k
+    for k in p_cpu:
+        assert float((p_card[k] - p_cpu[k]).abs().max()) <= 1e-5 * max(1.0, float(p_cpu[k].abs().max())), k

@@ -211,10 +211,16 @@ def test_registry_and_inference_only():
         get_model_class("deeplabv3plus")
     with pytest.raises(ValueError):
         get_model_class("resnet")
+    # Train mode runs since training was ported: batch statistics update
+    # the running ones, and the dropout mask follows the generator.
     module = UNetModule(input_channels=1, num_classes=3, start_neurons=2, pool_layers=1)
     module.train()
-    with pytest.raises(NotImplementedError, match="A8"):
-        module(torch.zeros(1, 8, 8, 1))
+    x = torch.rand(2, 8, 8, 1, generator=torch.Generator().manual_seed(0))
+    a = module(x, generator=torch.Generator().manual_seed(1))
+    assert not torch.equal(module.blocks[0].bn.running_var, torch.ones(2))
+    b = module(x, generator=torch.Generator().manual_seed(1))
+    c = module(x, generator=torch.Generator().manual_seed(2))
+    assert torch.equal(a, b) and not torch.equal(a, c)
 
 
 def test_seeded_init_is_reproducible_glorot():
