@@ -78,30 +78,24 @@ def build_device_augmenter(aug_fn_args):
 
     # Every branch runs on the whole batch; per-sample masks then select
     # the generator's choice.
+    noises = {"gaussian": add_gaussian_noise, "speckle": add_speckle_noise}
     branches = []
     for fn, arg in aug_fn_args:
         if fn is flip_aug:
-            axis = _flip_axis(arg["flip_type"])
+            _flip_axis(arg["flip_type"])  # an unknown flip type raises here
 
-            def mk_flip(axis=axis):
-                def b(generator, img, lab):
-                    return torch.flip(img, (axis,)), torch.flip(lab, (axis,))
-
-                return b
+            def mk_flip(flip_type=arg["flip_type"]):
+                return lambda generator, img, lab: flip(img, lab, flip_type)
 
             branches.append(mk_flip())
-        elif fn is add_noise_aug and arg.get("mode") in ("gaussian", "speckle"):
-            mode = arg["mode"]
-            mean = float(arg.get("mean", 0.0))
-            var = float(arg.get("variance", 0.01))
+        elif fn is add_noise_aug and arg.get("mode") in noises:
 
-            def mk_noise(mode=mode, mean=mean, var=var):
-                def b(generator, img, lab):
-                    noise = _noise(generator, img, mean, var)
-                    out = img + (img * noise if mode == "speckle" else noise)
-                    return torch.clamp(out, 0.0, 1.0), lab
-
-                return b
+            def mk_noise(
+                noise=noises[arg["mode"]],
+                mean=float(arg.get("mean", 0.0)),
+                var=float(arg.get("variance", 0.01)),
+            ):
+                return lambda generator, img, lab: (noise(generator, img, mean, var), lab)
 
             branches.append(mk_noise())
         elif fn is no_aug:

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import float32_precision
 from ..models.unet import BN_MOMENTUM
 
 _A9 = "cross-process statistics are data parallelism, not ported yet (ROADMAP A9)"
@@ -82,7 +83,8 @@ class BNRefresher:
 
         Returns ``{buffer name: tensor}`` for every ``running_mean`` and
         ``running_var``, as ``parallel.train_step.batch_stats`` gives
-        them. Raises ValueError on an empty ``batches``."""
+        them. The forwards run in full float32 (``float32_precision``).
+        Raises ValueError on an empty ``batches``."""
         if cross_process:
             raise NotImplementedError(_A9)
         module = self._module
@@ -95,16 +97,17 @@ class BNRefresher:
             if params is not None:
                 module.load_state_dict(params)
             total, count = None, 0
-            for x in batches:
-                s = self._raw_batch_stats(x, generator)
-                term = {}
-                for name, value in s.items():
-                    if name.endswith("running_var"):
-                        mean = s[name[: -len("running_var")] + "running_mean"]
-                        value = value + mean**2
-                    term[name] = value
-                total = term if total is None else {k: total[k] + term[k] for k in total}
-                count += 1
+            with float32_precision():
+                for x in batches:
+                    s = self._raw_batch_stats(x, generator)
+                    term = {}
+                    for name, value in s.items():
+                        if name.endswith("running_var"):
+                            mean = s[name[: -len("running_var")] + "running_mean"]
+                            value = value + mean**2
+                        term[name] = value
+                    total = term if total is None else {k: total[k] + term[k] for k in total}
+                    count += 1
         finally:
             module.load_state_dict(saved)
             module.train(was_training)

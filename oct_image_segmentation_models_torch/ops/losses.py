@@ -16,6 +16,10 @@ and not ``torch.clamp``: at an input equal to a bound ``jnp.clip`` passes
 half the gradient and ``torch.clamp`` all of it, and saturated softmax
 outputs (p == 1.0 exactly) do occur in training.
 
+A loss call copies nothing from the host to the card, so the train step
+never waits for the host: constants are filled on the device and a class
+weight is copied to a device once, by :class:`_PerDevice`.
+
 The JAX package's documented repairs of the reference are kept:
 ``bce_focal_loss`` is mean(BCE) + mean(focal, gamma=2) on the argmax
 labels, and ``bce_logdice_loss`` / ``weighted_bce_dice_loss`` call the
@@ -37,9 +41,23 @@ _EPS_KERAS = 1e-7  # keras.backend.epsilon()
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip(x, lo, hi)`` with its gradient: half at a bound."""
-    lo_t = torch.tensor(lo, dtype=x.dtype, device=x.device)
-    hi_t = torch.tensor(hi, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, lo_t), hi_t)
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
+
+
+class _PerDevice:
+    """A host array as a float32 tensor, copied to each device once."""
+
+    def __init__(self, array):
+        self._array = np.asarray(array, np.float32)
+        self._tensors = {}
+
+    def __len__(self) -> int:
+        return len(self._array)
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        if device not in self._tensors:
+            self._tensors[device] = torch.from_numpy(self._array).to(device)
+        return self._tensors[device]
 
 
 def _squeeze_labels(y_true: torch.Tensor) -> torch.Tensor:
@@ -106,9 +124,10 @@ def bce_dice_loss(*, num_classes: int, **kwargs):
 
 def _sparse_focal_map(y_true, y_pred, gamma, class_weight):
     """Per-pixel sparse categorical focal loss
-    ``-w[y] * (1 - p_y)^gamma * log(p_y)``. An out-of-range label gives an
-    all-zero one-hot row, so ``p_y`` sits at the clip floor (or the pixel
-    drops out with ``class_weight``), as in JAX."""
+    ``-w[y] * (1 - p_y)^gamma * log(p_y)``, ``class_weight`` a
+    :class:`_PerDevice` or None. An out-of-range label gives an all-zero
+    one-hot row, so ``p_y`` sits at the clip floor (or the pixel drops out
+    with ``class_weight``), as in JAX."""
     labels = _squeeze_labels(y_true).to(torch.int64)
     p = _clip(y_pred.to(torch.float32), _EPS_KERAS, 1.0)
     classes = torch.arange(p.shape[-1], device=p.device)
@@ -116,18 +135,19 @@ def _sparse_focal_map(y_true, y_pred, gamma, class_weight):
     p_y = _clip(torch.sum(p * oh, dim=-1), _EPS_KERAS, 1.0)
     focal = -((1.0 - p_y) ** gamma) * torch.log(p_y)
     if class_weight is not None:
-        w = torch.as_tensor(np.asarray(class_weight), dtype=torch.float32, device=p.device)
-        if w.shape[0] < p.shape[-1]:
+        if len(class_weight) < p.shape[-1]:
             raise ValueError(
-                f"class_weight has {w.shape[0]} entries but predictions "
+                f"class_weight has {len(class_weight)} entries but predictions "
                 f"have {p.shape[-1]} channels; provide one weight per class"
             )
+        w = class_weight.on(p.device)
         focal = focal * torch.sum(oh * w[: p.shape[-1]], dim=-1)
     return focal
 
 
 def focal_loss(gamma: float = 2, class_weight: Optional[np.ndarray] = None, **kwargs):
     """Sparse categorical focal loss."""
+    class_weight = None if class_weight is None else _PerDevice(class_weight)
 
     def _focal_loss(y_true, y_pred):
         return torch.mean(_sparse_focal_map(y_true, y_pred, gamma, class_weight))
@@ -148,6 +168,7 @@ def focal_dice_loss(
     labels."""
     dice_factory = dice_loss_macro if dice_macro else dice_loss_micro
     dice_fn = dice_factory(is_y_true_sparse=True, num_classes=num_classes)
+    class_weight = None if class_weight is None else _PerDevice(class_weight)
 
     def _focal_dice_loss(y_true, y_pred):
         focal = torch.mean(_sparse_focal_map(y_true, y_pred, gamma, class_weight))
@@ -174,10 +195,10 @@ def weighted_categorical_crossentropy(weights):
     """Class-weighted categorical cross-entropy (off-registry).
     Predictions are renormalised across the channel axis and clipped with
     the Keras epsilon before the log."""
-    w_np = np.asarray(weights, np.float32)
+    weights = _PerDevice(weights)
 
     def loss(y_true, y_pred):
-        w = torch.as_tensor(w_np, device=y_pred.device)
+        w = weights.on(y_pred.device)
         p = y_pred.to(torch.float32)
         p = p / torch.sum(p, dim=-1, keepdim=True)
         p = _clip(p, _EPS_KERAS, 1.0 - _EPS_KERAS)
@@ -241,7 +262,7 @@ def weighted_bce_dice_loss(y_true, y_pred):
     p = y_pred.to(torch.float32)
     averaged_mask = _same_avg_pool_hw(t, 50)
     weight = 5.0 * torch.exp(-5.0 * torch.abs(averaged_mask - 0.5))
-    w0 = torch.tensor(float(averaged_mask.numel()), dtype=torch.float32, device=t.device)
+    w0 = averaged_mask.new_full((), float(averaged_mask.numel()))
     weight = weight * (w0 / torch.sum(weight))
     dice = dice_loss_micro(is_y_true_sparse=False, num_classes=None)
     return weighted_bce_loss(t, p, weight) + dice(t, p)

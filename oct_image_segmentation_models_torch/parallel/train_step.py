@@ -10,6 +10,9 @@ package's ``parallel/train_step.py``, on one device.
   metric are 0-d tensors on the device, never read back inside the step.
 - :func:`make_eval_step` returns ``eval_step(state, images, labels) ->
   (loss, metric)``, the eval-mode forward.
+- Both steps run their convolutions and matmuls in full float32
+  (:func:`.._device.float32_precision`, the backward included), whatever
+  the caller's TF32 settings.
 - The optimizers compute optax 0.2.6's update rules (the JAX package's),
   with the Keras defaults the JAX package maps onto them (epsilon 1e-7,
   learning rate 1e-3, SGD's 0.01, RMSprop's ``rho``). ``torch.optim``'s
@@ -32,6 +35,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from .._device import float32_precision
 
 _A9 = "data parallelism is not ported to PyTorch yet (ROADMAP A9)"
 
@@ -73,20 +78,30 @@ def make_train_step(
     the model's preprocess) run inside the step; with it, the step takes
     the generator's per-sample ``choices``. The augmentation draws from
     ``generator`` first, then the dropout mask. ``impl`` "auto" and "spmd"
-    are the one-device step; "shard_map" and any mesh are ROADMAP A9."""
+    are the one-device step; "shard_map" and any mesh are ROADMAP A9.
+
+    The step's keyword ``on_phase(name)``, when given, is called at the end
+    of each of its phases, "forward" (the forward, loss and metric),
+    "backward" and "optimizer": a hook to time the step's split, e.g. by
+    recording a CUDA event."""
     _check_single_device(mesh, impl)
 
-    def train_step(state: TrainState, images, labels, generator, choices=None):
-        module.train()
-        if input_transform is not None:
-            images, labels = input_transform(generator, images, labels, choices)
-        out = module(images, generator=generator)
-        loss = loss_fn(labels, out)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        with torch.no_grad():
-            metric = metric_fn(labels, out)
-        state.optimizer.step()
+    def train_step(state: TrainState, images, labels, generator, choices=None, *, on_phase=None):
+        mark = on_phase or (lambda name: None)
+        with float32_precision():
+            module.train()
+            if input_transform is not None:
+                images, labels = input_transform(generator, images, labels, choices)
+            out = module(images, generator=generator)
+            loss = loss_fn(labels, out)
+            with torch.no_grad():
+                metric = metric_fn(labels, out)
+            mark("forward")
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            mark("backward")
+            state.optimizer.step()
+            mark("optimizer")
         state.step += 1
         return state, loss.detach(), metric
 
@@ -101,12 +116,13 @@ def make_eval_step(
     impl: str = "auto",
 ) -> Callable:
     """Returns ``eval_step(state, images, labels) -> (loss, metric)``, the
-    eval-mode forward (running BatchNorm statistics, no dropout)."""
+    eval-mode forward (running BatchNorm statistics, no dropout) in full
+    float32."""
     _check_single_device(mesh, impl)
 
     def eval_step(state: TrainState, images, labels):
         module.eval()
-        with torch.no_grad():
+        with torch.no_grad(), float32_precision():
             out = module(images)
             return loss_fn(labels, out), metric_fn(labels, out)
 

@@ -161,15 +161,20 @@ def _check_noise_band(noise, mean, variance):
 
 @pytest.mark.parametrize("mode", ["gaussian", "speckle"])
 def test_device_noise_mean_and_variance(mode):
+    """The noise branch of ``build_device_augmenter`` (what the train step
+    runs) is the public transform, draw for draw, and its noise lies in
+    the band."""
     base = torch.full((4, 128, 128, 1), 0.5)
-    gen = torch.Generator().manual_seed(0)
+    labels = torch.zeros((4, 128, 128, 1), dtype=torch.uint8)
     mean, variance = 0.01, 0.004
-    if mode == "gaussian":
-        out = port_device_aug.add_gaussian_noise(gen, base, mean, variance)
-        noise = (out - base).numpy()
-    else:
-        out = port_device_aug.add_speckle_noise(gen, base, mean, variance)
-        noise = ((out - base) / base).numpy()
+    apply = port_device_aug.build_device_augmenter(
+        [(port_aug.add_noise_aug, {"mode": mode, "mean": mean, "variance": variance})]
+    )
+    out, out_labels = apply(torch.Generator().manual_seed(0), base, labels, torch.zeros(4, dtype=torch.int32))
+    public = {"gaussian": port_device_aug.add_gaussian_noise, "speckle": port_device_aug.add_speckle_noise}
+    assert torch.equal(out, public[mode](torch.Generator().manual_seed(0), base, mean, variance))
+    assert torch.equal(out_labels, labels)
+    noise = (out - base).numpy() if mode == "gaussian" else ((out - base) / base).numpy()
     _check_noise_band(noise.astype(np.float64), mean, variance)
     assert out.min() >= 0 and out.max() <= 1
 

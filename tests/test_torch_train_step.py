@@ -379,6 +379,52 @@ def test_input_transform_runs_inside_the_step():
     assert seen == [[0, -1]]
 
 
+def _tf32_flags():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def test_steps_and_refresher_turn_tf32_off_themselves():
+    """train_step (forward and backward), eval_step and BNRefresher run in
+    full float32 under a caller's TF32 settings, and put them back."""
+    module = _port_module_random()
+    seen = []
+    module.head.register_forward_hook(lambda m, i, o: seen.append(("forward", _tf32_flags())))
+    module.head.register_full_backward_hook(lambda m, gi, go: seen.append(("backward", _tf32_flags())))
+    fn = tl.focal_dice_loss(num_classes=C)
+    state = tts.create_train_state(module, tts.build_optimizer("adam", {}))
+    x, y = (torch.from_numpy(a) for a in _batch(4))
+    prev = _tf32_flags()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tts.make_train_step(module, fn, tm.dice_coef_macro(True, C))(state, x, y, None)
+        tts.make_eval_step(module, fn, fn)(state, x, y)
+        port_bn.BNRefresher(module)(None, [x])
+        port_bn.BNRefresher(module, deterministic=True)(None, [x])
+        assert _tf32_flags() == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    assert [name for name, _ in seen] == ["forward", "backward"] + ["forward"] * 3
+    assert all(flags == (False, False) for _, flags in seen), seen
+
+
+def test_on_phase_marks_the_steps_split():
+    module = _port_module_random()
+    fn = tl.focal_dice_loss(num_classes=C)
+    state = tts.create_train_state(module, tts.build_optimizer("adam", {}))
+    step = tts.make_train_step(module, fn, tm.dice_coef_macro(True, C))
+    x, y = (torch.from_numpy(a) for a in _batch(5))
+    marks = []
+
+    def on_phase(name):
+        grads = [p.grad for p in module.parameters()]
+        marks.append((name, all(g is not None for g in grads), state.optimizer.state != {}))
+
+    step(state, x, y, None, on_phase=on_phase)
+    # the gradients exist from the backward on, the optimizer state from its step
+    assert marks == [("forward", False, False), ("backward", True, False), ("optimizer", True, True)]
+    assert state.step == 1
+
+
 OPTIMIZER_CASES = [
     ("adam", {}),
     ("adam", {"beta_1": 0.8, "epsilon": 1e-6, "learning_rate": 0.01}),
