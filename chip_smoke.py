@@ -55,7 +55,27 @@ Phases, each of which raises on failure:
      loss must fall below the first step's and the statistics be finite
      with var > 0. The trained weights are then served through the folded
      path (B1) and the s2d path (B2) on held-out B-scans, rows against the
-     plain min-path, and their dice printed.
+     plain min-path, and their dice printed;
+   - the data-parallel path (``parallel/``), after ``torch.cuda.empty_cache()``:
+     first a world of one over NCCL in this process, which runs the
+     per-replica step (``impl="shard_map"``, DDP) at full width for 3 Adam
+     steps at batch 8 of 512x1024 against the one-device step from the same
+     weights, batches and dropout generator, both under deterministic
+     algorithms (parameters, running statistics and losses bit for bit),
+     and times both steps in turns with the default algorithms (the cost
+     of DDP's hooks at world 1);
+     then two ranks that share the card over gloo (NCCL refuses two ranks
+     on one device), spawned with the ``spawn`` method and joined with a
+     time limit. They take one step from common weights at a local batch
+     of 4, held against the per-replica definition computed here (the mean
+     of the one-device steps' gradients, running statistics, loss and
+     metric on the two halves); run the cross-rank ``BNRefresher``, held
+     against the one-process refresher over both ranks' batches; and serve
+     the 20-B-scan volume through ``VolumeSegmenter(mesh=)`` (s2d, B2) and
+     the folded ``make_fused_pipeline(mesh=)`` (B1) in both tie modes, the
+     gathered labels and rows equal on every rank to the one-rank paths
+     at the ranks' per-call batch of 4, bit for bit. Each rank counts its
+     own kernel launches.
 4. Times, with CUDA events (median of several runs after warm-up): both
    pipelines per batch and their stages, each kernel per call beside its
    plain version, its yardstick and its bound (B3: on the tensor cores,
@@ -77,7 +97,8 @@ graph-search API, the train and eval steps and the BN refresher); the CPU
 tests (``tests/test_torch_predict_evaluate.py``,
 ``tests/test_torch_training.py``) hold the artifacts.
 
-It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+It prints one ``{"dp": {...}}`` line with the data-parallel path's
+results, one ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device it
 exits with code 2 and prints no result. It imports nothing of JAX.
 """
@@ -92,6 +113,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -495,16 +517,16 @@ def check_rows(tie: str, labels: np.ndarray, rows: np.ndarray) -> None:
     print(f"rows ({tie} ties, {n} B-scans) equal the plain min-path on the returned labels")
 
 
-def run_volume(pipe, volume: np.ndarray):
-    """A volume through a pipeline in batches of ``BATCH``, as
+def run_volume(pipe, volume: np.ndarray, batch: int = BATCH):
+    """A volume through a pipeline in batches of ``batch``, as
     ``VolumeSegmenter`` batches it -> numpy (labels, rows)."""
     n = volume.shape[0]
-    pad = (-n) % BATCH
+    pad = (-n) % batch
     if pad:
         volume = np.concatenate([volume, volume[-1:].repeat(pad, 0)])
     labels, rows = [], []
-    for i in range(0, len(volume), BATCH):
-        lab, _, r = pipe(torch.from_numpy(volume[i : i + BATCH]).pin_memory())
+    for i in range(0, len(volume), batch):
+        lab, _, r = pipe(torch.from_numpy(volume[i : i + batch]).pin_memory())
         labels.append(lab)
         rows.append(r)
     return torch.cat(labels).cpu().numpy()[:n], torch.cat(rows).cpu().numpy()[:n]
@@ -914,7 +936,7 @@ def gate_flips(a: GateRecorder, b: GateRecorder) -> tuple:
     )
 
 
-def _train_objects(module, seed: int):
+def _train_objects(module, seed: int, mesh=None, impl: str = "auto"):
     from oct_image_segmentation_models_torch.ops import losses, metrics
     from oct_image_segmentation_models_torch.parallel.train_step import (
         build_optimizer,
@@ -927,11 +949,11 @@ def _train_objects(module, seed: int):
         num_classes=NUM_CLASSES, is_y_true_sparse=True
     )
     metric_fn = metrics.dice_coef_macro(True, NUM_CLASSES)
-    state = create_train_state(module, build_optimizer("adam", {"learning_rate": 1e-3}))
+    state = create_train_state(module, build_optimizer("adam", {"learning_rate": 1e-3}), mesh)
     return (
         state,
-        make_train_step(module, loss_fn, metric_fn),
-        make_eval_step(module, loss_fn, metric_fn),
+        make_train_step(module, loss_fn, metric_fn, mesh, impl),
+        make_eval_step(module, loss_fn, metric_fn, mesh, impl),
     )
 
 
@@ -1223,6 +1245,408 @@ def phase_train_path(rng, seed: int) -> dict:
     return out
 
 
+# --- the data-parallel path ----------------------------------------------
+
+DP_STEPS = 3  # steps of the world-of-one run held against the one-device step
+DP_TIMED = 6  # steps timed per step variant, in turns
+DP_RANKS = 2  # ranks that share the card over gloo
+DP_LOCAL_BATCH = BATCH // DP_RANKS
+DP_STAT_BATCHES = 2  # stat batches per rank for the cross-rank refresher
+DP_TIMEOUT_S = 600  # a rank that outlives this fails the phase
+DP_COLLECTIVE_TIMEOUT = 300  # seconds a collective may wait
+# DDP at world 1 against the one-device step on the same card, both under
+# deterministic algorithms: the same kernels on the same data, so every
+# parameter, running statistic and loss must be equal bit for bit. (With
+# cuDNN's default algorithms two identical runs part from the second step:
+# tools/torch_bn_drift_probe.py.) Two ranks against the per-replica
+# definition: loss and metric within DP_LOSS_RTOL, running statistics
+# within DP_STAT_ATOL (means of two float32 values in another order), the
+# gradients as the card-vs-CPU step check holds them (STEP_GRAD_*).
+DP_STAT_ATOL = 1e-5
+DP_LOSS_RTOL = 1e-5
+# The cross-rank refresher against the one-process one: the same per-batch
+# statistics summed in another order.
+DP_REFRESH_RTOL, DP_REFRESH_ATOL = 1e-5, 1e-6
+
+
+def _pre_bn_bias(key: str) -> bool:
+    return key.startswith("blocks.") and key.endswith(".conv.bias")
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Deterministic kernels inside (cuDNN's convolutions included), the
+    caller's settings after. Yields the list of warnings raised inside:
+    an op that has no deterministic kernel warns rather than fails."""
+    prev = (
+        torch.are_deterministic_algorithms_enabled(),
+        torch.is_deterministic_algorithms_warn_only_enabled(),
+        torch.backends.cudnn.deterministic,
+    )
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic = prev[2]
+
+
+def nondeterministic_ops(caught) -> list:
+    return sorted({
+        str(w.message).split(" does not have a deterministic")[0]
+        for w in caught
+        if "does not have a deterministic" in str(w.message)
+    })
+
+
+def world1_runs(base, batches, mesh, seed: int) -> dict:
+    """``DP_STEPS`` steps through DDP over ``mesh`` and through the
+    one-device step, each from ``base``'s weights with the same batches
+    and dropout generator -> {name: (module, state, step, generator,
+    losses)}."""
+    runs = {}
+    for name, kwargs in (("ddp", {"mesh": mesh, "impl": "shard_map"}), ("one", {})):
+        module = copy.deepcopy(base)
+        state, step, _ = _train_objects(module, seed, **kwargs)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+        losses = [step(state, x, y, gen)[1] for x, y in batches]
+        runs[name] = (module, state, step, gen, torch.stack(losses).cpu().numpy())
+    return runs
+
+
+def dp_world_of_one(rng, model, seed: int) -> dict:
+    """``impl="shard_map"`` (DDP) over a world of one on NCCL, at full
+    width, against the one-device step from the same weights, batches and
+    dropout generator, both under deterministic algorithms; then both
+    timed in turns with the default algorithms."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from oct_image_segmentation_models_torch.parallel import mesh as mesh_lib
+
+    container, base = model
+    images, labels = layered_dataset(rng, BATCH * DP_STEPS, H, W, NUM_CLASSES)
+    batches = [
+        (
+            torch.from_numpy(images[i:i + BATCH].astype(np.float32) / 255.0).cuda(),
+            torch.from_numpy(labels[i:i + BATCH]).cuda(),
+        )
+        for i in range(0, BATCH * DP_STEPS, BATCH)
+    ]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_lib.init_distributed(
+            "cuda", rank=0, world_size=1, init_method=f"file://{tmp}/store",
+            timeout=timedelta(seconds=DP_COLLECTIVE_TIMEOUT),
+        )
+        try:
+            mesh = mesh_lib.create_mesh(device="cuda:0")
+            if dist.get_backend() != "nccl" or mesh.world != 1:
+                raise AssertionError(f"world of one on {dist.get_backend()}, {mesh.world}")
+            with deterministic_algorithms() as caught:
+                runs = world1_runs(base, batches, mesh, seed)
+            out["nondeterministic_ops"] = nondeterministic_ops(caught)
+            want = runs["one"][0].state_dict()
+            got = runs["ddp"][0].state_dict()
+            for kind, keys in (
+                ("param", [k for k in want if "running" not in k]),
+                ("stat", [k for k in want if "running" in k]),
+            ):
+                out[kind] = max(float((got[k] - want[k]).abs().max()) for k in keys)
+            out["loss_max_abs_err"] = float(np.max(np.abs(runs["ddp"][4] - runs["one"][4])))
+            if out["param"] or out["stat"] or out["loss_max_abs_err"]:
+                raise AssertionError(f"DDP at world 1 is not the one-device step: {out}")
+            # Times in turns (one, ddp, ddp, one, ...), default algorithms.
+            times = {"one": [], "ddp": []}
+            x, y = batches[-1]
+            for name in ["one", "ddp", "ddp", "one"] * (DP_TIMED // 2):
+                _, state, step, gen, _ = runs[name]
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step(state, x, y, gen)
+                stop.record()
+                stop.synchronize()
+                times[name].append(start.elapsed_time(stop))
+            out["one_device_step_ms"] = statistics.median(times["one"])
+            out["ddp_world1_step_ms"] = statistics.median(times["ddp"])
+        finally:
+            dist.destroy_process_group()
+    print(
+        f"dp world of one (NCCL, DDP, batch {BATCH} x {H}x{W}, {DP_STEPS} Adam steps under "
+        f"deterministic algorithms) vs the one-device step, bit for bit: params max |d| "
+        f"{out['param']:.2e}, running stats {out['stat']:.2e}, losses {out['loss_max_abs_err']:.2e} "
+        f"(tolerance 0); ops without a deterministic kernel: "
+        f"{out['nondeterministic_ops'] or 'none'}; step {out['ddp_world1_step_ms']:.3f} ms with "
+        f"DDP, {out['one_device_step_ms']:.3f} ms without"
+    )
+    return out
+
+
+def _dp_rank_seed(seed: int, rank: int) -> int:
+    return seed * 100 + rank
+
+
+def dp_rank(rank: int, workdir: str, seed: int) -> None:
+    """One of ``DP_RANKS`` ranks that share ``cuda:0`` over gloo (NCCL
+    refuses two ranks on one device). Runs in a process of its own, started
+    with the ``spawn`` method; writes its results to ``workdir``."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from oct_image_segmentation_models_torch.common.model_io import LoadedModel
+    from oct_image_segmentation_models_torch.models.unet import fold_batchnorm
+    from oct_image_segmentation_models_torch.ops.bn_refresh import BNRefresher
+    from oct_image_segmentation_models_torch.ops.inference import make_fused_pipeline
+    from oct_image_segmentation_models_torch.parallel import mesh as mesh_lib
+    from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
+
+    torch.cuda.set_device(0)
+    inputs = torch.load(f"{workdir}/inputs.pt")
+    mesh_lib.init_distributed(
+        "cuda", rank=rank, world_size=DP_RANKS, init_method=f"file://{workdir}/store",
+        backend="gloo", timeout=timedelta(seconds=DP_COLLECTIVE_TIMEOUT),
+    )
+    try:
+        mesh = mesh_lib.create_mesh(local_size=DP_RANKS, device="cuda:0")
+        container, module = build_unet(seed)
+        module.load_state_dict(inputs["weights"])
+        out = {"rank": mesh.rank, "node": mesh.node, "local_rank": mesh.local_rank}
+
+        # One step from common weights, each rank on its rows.
+        rows = mesh.local_rows(BATCH)
+        train_module = copy.deepcopy(module)
+        state, step, _ = _train_objects(train_module, seed, mesh=mesh, impl="shard_map")
+        gen = torch.Generator(device="cuda").manual_seed(_dp_rank_seed(seed, rank))
+        x, y = inputs["x"][rows].cuda(), inputs["y"][rows].cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss, metric = step(state, x, y, gen)
+        torch.cuda.synchronize()
+        out["step_s"] = time.perf_counter() - t0
+        out["loss"], out["metric"] = float(loss), float(metric)
+        out["grads"] = {k: p.grad.cpu() for k, p in train_module.named_parameters()}
+        out["stats"] = {
+            k: v.cpu() for k, v in train_module.state_dict().items() if "running" in k
+        }
+        del train_module, state, step
+
+        # The cross-rank precise-BN refresher on this rank's batches.
+        refresher = BNRefresher(module, deterministic=True)
+        batches = [b.cuda() for b in inputs["stat_x"][rank]]
+        out["refreshed"] = {
+            k: v.cpu() for k, v in refresher(None, batches, cross_process=True).items()
+        }
+
+        # Serving: VolumeSegmenter over the mesh (s2d, B2) and the folded
+        # pipeline over the mesh (B1), both tie modes.
+        config = container.get_config()
+        volume = inputs["volume"].numpy()
+        reset_counts()
+        for tie in ("fast", "exact"):
+            seg = VolumeSegmenter(
+                LoadedModel("unet", module, config), config, batch_size=BATCH,
+                minpath_tie_parity=tie, mesh=mesh,
+            )
+            out[f"seg_{tie}"] = seg.segment_volume(volume)
+        out["b2_launches"] = read_counts()
+        reset_counts()
+        for tie in ("fast", "exact"):
+            pipe = make_fused_pipeline(
+                fold_batchnorm(module), container.get_preprocess_input_fn(),
+                minpath_tie_parity=tie, return_maps=False, mesh=mesh,
+            )
+            out[f"folded_{tie}"] = run_volume(pipe, volume)
+        torch.cuda.synchronize()
+        out["b1_launches"] = read_counts()
+        torch.save(out, f"{workdir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_two_ranks(rng, model, volume: np.ndarray, seed: int) -> dict:
+    """``DP_RANKS`` ranks on the card over gloo, spawned, against the
+    per-replica definition computed here on the card."""
+    import multiprocessing
+    import tempfile
+
+    from oct_image_segmentation_models_torch.common.model_io import LoadedModel
+    from oct_image_segmentation_models_torch.models.unet import fold_batchnorm
+    from oct_image_segmentation_models_torch.ops.bn_refresh import BNRefresher
+    from oct_image_segmentation_models_torch.ops.inference import make_fused_pipeline
+    from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
+
+    container, base = model
+    images, labels = layered_dataset(rng, BATCH, H, W, NUM_CLASSES)
+    stat_x = layered_bscans(rng, DP_RANKS * DP_STAT_BATCHES * DP_LOCAL_BATCH, H, W, NUM_CLASSES)
+    stat_x = torch.from_numpy(stat_x.astype(np.float32) / 255.0).reshape(
+        DP_RANKS, DP_STAT_BATCHES, DP_LOCAL_BATCH, H, W, 1
+    )
+    inputs = {
+        "weights": {k: v.cpu() for k, v in base.state_dict().items()},
+        "x": torch.from_numpy(images.astype(np.float32) / 255.0),
+        "y": torch.from_numpy(labels),
+        "stat_x": stat_x,
+        "volume": torch.from_numpy(volume),
+    }
+    out = {}
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as workdir:
+        torch.save(inputs, f"{workdir}/inputs.pt")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=dp_rank, args=(r, workdir, seed)) for r in range(DP_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.time() + DP_TIMEOUT_S
+            for p in procs:
+                p.join(timeout=max(1.0, deadline - time.time()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        out["ranks_wall_s"] = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * DP_RANKS:
+            raise AssertionError(f"dp ranks exited with {codes} (a failure or a hang)")
+        ranks = [torch.load(f"{workdir}/rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+
+    # The per-replica definition: the one-device step on each rank's rows
+    # with its generator, then the means.
+    local = []
+    for r in range(DP_RANKS):
+        module = copy.deepcopy(base)
+        state, step, _ = _train_objects(module, seed)
+        gen = torch.Generator(device="cuda").manual_seed(_dp_rank_seed(seed, r))
+        rows = slice(r * DP_LOCAL_BATCH, (r + 1) * DP_LOCAL_BATCH)
+        _, loss, metric = step(state, inputs["x"][rows].cuda(), inputs["y"][rows].cuda(), gen)
+        local.append((
+            float(loss), float(metric),
+            {k: p.grad.cpu() for k, p in module.named_parameters()},
+            {k: v.cpu() for k, v in module.state_dict().items() if "running" in k},
+        ))
+        del module, state, step
+    want_loss = sum(x[0] for x in local) / DP_RANKS
+    want_metric = sum(x[1] for x in local) / DP_RANKS
+    got = ranks[0]
+    for other in ranks[1:]:
+        for k in got["grads"]:
+            if not torch.equal(got["grads"][k], other["grads"][k]):
+                raise AssertionError(f"ranks hold different averaged gradients for {k}")
+        if (got["loss"], got["metric"]) != (other["loss"], other["metric"]):
+            raise AssertionError("ranks hold different mean losses")
+    loss_err = abs(got["loss"] - want_loss) / abs(want_loss)
+    metric_err = abs(got["metric"] - want_metric) / max(abs(want_metric), 1e-12)
+    gmax = max(float(g.abs().max()) for g in local[0][2].values())
+    grad_err, zero_grad = 0.0, 0.0
+    for k, g in got["grads"].items():
+        want = sum(x[2][k] for x in local) / DP_RANKS
+        if _pre_bn_bias(k):
+            zero_grad = max(zero_grad, float(g.abs().max()), float(want.abs().max()))
+            continue
+        err = float((g - want).abs().max()) / (
+            STEP_GRAD_RTOL * float(want.abs().max()) + STEP_GRAD_ATOL
+        )
+        grad_err = max(grad_err, err)
+    stat_err = max(
+        float((got["stats"][k] - sum(x[3][k] for x in local) / DP_RANKS).abs().max())
+        for k in got["stats"]
+    )
+    out.update(
+        step_loss_rel_err=loss_err, step_metric_rel_err=metric_err,
+        step_grad_worst_of_allowance=grad_err, step_zero_grad_share=zero_grad / gmax,
+        step_stat_max_abs_err=stat_err, rank_step_s=[r["step_s"] for r in ranks],
+    )
+    print(
+        f"dp two ranks on one card (gloo, local batch {DP_LOCAL_BATCH} x {H}x{W}), one step "
+        f"against the per-replica definition: loss {got['loss']:.6f} / {want_loss:.6f} (rel "
+        f"{loss_err:.2e}), metric rel {metric_err:.2e} (tolerance {DP_LOSS_RTOL:g}), gradients "
+        f"worst tensor {grad_err:.3f} of {STEP_GRAD_RTOL:g} * max |g| + {STEP_GRAD_ATOL:g}, "
+        f"pre-BN conv biases {zero_grad / gmax:.2e} of max |g| (bound {ZERO_GRAD_SHARE:g}), "
+        f"running stats max |d| {stat_err:.2e} (tolerance {DP_STAT_ATOL:g})"
+    )
+    if loss_err > DP_LOSS_RTOL or metric_err > DP_LOSS_RTOL:
+        raise AssertionError(f"two-rank loss/metric off the per-replica mean: {loss_err}, {metric_err}")
+    if grad_err > 1 or zero_grad > ZERO_GRAD_SHARE * gmax or stat_err > DP_STAT_ATOL:
+        raise AssertionError(f"two-rank step off the per-replica definition: {grad_err}, {stat_err}")
+
+    # The cross-rank refresher against the one-process one over all batches.
+    batches = [b.cuda() for b in stat_x.reshape(-1, DP_LOCAL_BATCH, H, W, 1)]
+    want_stats = BNRefresher(base, deterministic=True)(None, batches)
+    refresh_err = 0.0
+    for k, w in want_stats.items():
+        g = got["refreshed"][k]
+        excess = (g - w.cpu()).abs() - (DP_REFRESH_ATOL + DP_REFRESH_RTOL * w.cpu().abs())
+        refresh_err = max(refresh_err, float((g - w.cpu()).abs().max()))
+        if float(excess.max()) > 0:
+            raise AssertionError(f"cross-rank refresher off the one-process one at {k}")
+    out["refresh_max_abs_err"] = refresh_err
+    print(
+        f"dp cross-rank BNRefresher ({DP_RANKS} x {DP_STAT_BATCHES} batches of "
+        f"{DP_LOCAL_BATCH}) vs the one-process refresher over all of them: max |d| "
+        f"{refresh_err:.2e} (tolerance {DP_REFRESH_ATOL:g} + {DP_REFRESH_RTOL:g} * |v|)"
+    )
+
+    # Serving: every rank's gathered outputs against the one-rank paths at
+    # the ranks' per-call batch, bit for bit.
+    config = container.get_config()
+    loaded = LoadedModel("unet", base, config)
+    for tie in ("fast", "exact"):
+        seg = VolumeSegmenter(
+            loaded, config, batch_size=DP_LOCAL_BATCH, minpath_tie_parity=tie, device="cuda"
+        )
+        want_seg = seg.segment_volume(volume)
+        pipe = make_fused_pipeline(
+            fold_batchnorm(base), container.get_preprocess_input_fn(),
+            minpath_tie_parity=tie, return_maps=False, device="cuda",
+        )
+        want_fold = run_volume(pipe, volume, DP_LOCAL_BATCH)
+        for rank in ranks:
+            for name, want in ((f"seg_{tie}", want_seg), (f"folded_{tie}", want_fold)):
+                for part, a, b in zip(("labels", "rows"), rank[name], want):
+                    if not np.array_equal(a, b):
+                        raise AssertionError(f"rank {rank['rank']} {name} {part} differ")
+        check_rows(tie, ranks[0][f"seg_{tie}"][0], ranks[0][f"seg_{tie}"][1])
+        check_rows(tie, ranks[0][f"folded_{tie}"][0], ranks[0][f"folded_{tie}"][1])
+    b2 = [r["b2_launches"]["minpath_dp_s2d"] for r in ranks]
+    b1 = [r["b1_launches"]["minpath_dp"] for r in ranks]
+    if min(b1) < 1 or min(b2) < 1:
+        raise AssertionError(f"a rank served without its kernel: B1 {b1}, B2 {b2}")
+    for r in ranks:
+        if r["b2_launches"]["minpath_dp"] or r["b1_launches"]["minpath_dp_s2d"]:
+            raise AssertionError(f"rank {r['rank']} launched the other min-path kernel")
+        if r["b2_launches"]["s2d_enc_pair"] or r["b1_launches"]["s2d_enc_pair"]:
+            raise AssertionError(f"rank {r['rank']} launched the encoder-pair kernel")
+    out.update(b1_launches_per_rank=b1, b2_launches_per_rank=b2)
+    print(
+        f"dp serving over {DP_RANKS} ranks ({VOLUME} B-scans, batch {BATCH}, "
+        f"{DP_LOCAL_BATCH} per rank and call): VolumeSegmenter(mesh=) (s2d) and the folded "
+        f"make_fused_pipeline(mesh=), both tie modes, labels and rows equal to the one-rank "
+        f"paths at batch {DP_LOCAL_BATCH} on every rank; B2 launches per rank {b2}, B1 {b1}"
+    )
+    return out
+
+
+def phase_dp_path(rng, model, volume: np.ndarray, seed: int) -> dict:
+    """The data-parallel slice: a world of one over NCCL at full width,
+    then two ranks that share the card over gloo."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"world1": dp_world_of_one(rng, model, seed)}
+    torch.cuda.empty_cache()
+    out["two_ranks"] = dp_two_ranks(rng, model, volume, seed)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def kernel_bound_ms(n: int, w: int, h: int, max_grad: int, exact: bool) -> tuple:
     """Least time for the min-path function on these shapes: bytes (maps
     read once, int32 rows written once) over HBM bandwidth, against int32
@@ -1482,6 +1906,7 @@ def main(argv=None) -> int:
     times = phase_times(model, s2d, folded, fused, parity_pair["flagship_args"])
     times.update(predict_path_times(predict, volume))
     train = phase_train_path(rng, args.seed)
+    dp = phase_dp_path(rng, model, volume, args.seed)
 
     card = env["card"]
     for path in ("s2d", "folded"):
@@ -1592,14 +2017,16 @@ def main(argv=None) -> int:
     for name, launches, err, key, replaces in (
         (
             "minpath_dp",
-            folded["launches"] + predict["launches"] + train["launches"]["minpath_dp"],
+            folded["launches"] + predict["launches"] + train["launches"]["minpath_dp"]
+            + sum(dp["two_ranks"]["b1_launches_per_rank"]),
             parity["max_abs_err"],
             "b1",
             f"{tpu_minpath}:487",
         ),
         (
             "minpath_dp_s2d",
-            s2d["launches"] + train["launches"]["minpath_dp_s2d"],
+            s2d["launches"] + train["launches"]["minpath_dp_s2d"]
+            + sum(dp["two_ranks"]["b2_launches_per_rank"]),
             parity_s2d["max_abs_err"],
             "b2",
             f"{tpu_minpath}:533",
@@ -1623,9 +2050,11 @@ def main(argv=None) -> int:
             line["launches_predict_path"] = predict["launches"]
             line["predict_path_store_launches"] = predict["store_launches"]
             line["launches_train_path"] = train["launches"]["minpath_dp"]
+            line["launches_dp_path_per_rank"] = dp["two_ranks"]["b1_launches_per_rank"]
         if key == "b2":
             line["launches_s2d_path"] = s2d["launches"]
             line["launches_train_path"] = train["launches"]["minpath_dp_s2d"]
+            line["launches_dp_path_per_rank"] = dp["two_ranks"]["b2_launches_per_rank"]
             line["transpose_then_b1_ms"] = times["b2_yardstick_fast_ms"]
             line["transpose_then_b1_ms_exact"] = times["b2_yardstick_exact_ms"]
         kernels.append(line)
@@ -1662,12 +2091,37 @@ def main(argv=None) -> int:
             },
             "times": times,
             "train_path": train,
+            "dp_path": dp,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start,
         }
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
+    w1, two = dp["world1"], dp["two_ranks"]
+    print(
+        f"[{card}] dp path: world of one (NCCL) train step {w1['ddp_world1_step_ms']:.3f} ms "
+        f"with DDP, {w1['one_device_step_ms']:.3f} ms without; two ranks on the card (gloo): "
+        f"{two['ranks_wall_s']:.1f} s for both ranks' work, spawn included; the phase "
+        f"{dp['phase_s']:.1f} s"
+    )
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"dp": {
+        "world1_ddp_step_ms": w1["ddp_world1_step_ms"],
+        "world1_one_device_step_ms": w1["one_device_step_ms"],
+        "world1_param_max_abs_err": w1["param"],
+        "world1_stat_max_abs_err": w1["stat"],
+        "world1_loss_max_abs_err": w1["loss_max_abs_err"],
+        "two_rank_loss_rel_err": two["step_loss_rel_err"],
+        "two_rank_metric_rel_err": two["step_metric_rel_err"],
+        "two_rank_grad_worst_of_allowance": two["step_grad_worst_of_allowance"],
+        "two_rank_stat_max_abs_err": two["step_stat_max_abs_err"],
+        "two_rank_refresh_max_abs_err": two["refresh_max_abs_err"],
+        "two_rank_serving_bit_equal": True,
+        "b1_launches_per_rank": two["b1_launches_per_rank"],
+        "b2_launches_per_rank": two["b2_launches_per_rank"],
+        "two_rank_wall_s": two["ranks_wall_s"],
+        "phase_s": dp["phase_s"],
+    }}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {

@@ -15,9 +15,9 @@ TRACE_FILENAME = "trace.json"
 
 
 @contextlib.contextmanager
-def trace(profile_dir: Optional[Path]):
+def trace(profile_dir: Optional[Path], filename: str = TRACE_FILENAME):
     """Capture host activity, and the card's when CUDA is available, into
-    ``profile_dir/trace.json``; a no-op when ``profile_dir`` is None."""
+    ``profile_dir/filename``; a no-op when ``profile_dir`` is None."""
     if profile_dir is None:
         yield
         return
@@ -31,4 +31,4 @@ def trace(profile_dir: Optional[Path]):
     logging.getLogger(__name__).info("profiling into %s", profile_dir)
     with profile(activities=activities) as prof:
         yield
-    prof.export_chrome_trace(str(profile_dir / TRACE_FILENAME))
+    prof.export_chrome_trace(str(profile_dir / filename))

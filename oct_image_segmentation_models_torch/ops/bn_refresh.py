@@ -12,17 +12,20 @@ mean_b^2] - mean^2``, clamped at 0).
 
 The training driver uses it to finalise saved checkpoints
 (``bn_precise_stats``) and for the statistics behind each epoch's
-validation metrics (``bn_precise_val``).
+validation metrics (``bn_precise_val``). In a run of several ranks
+(``cross_process=True``) the per-batch accumulators and their count are
+summed over the world before the average, so every rank gets the
+statistics of every rank's batches.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from .._device import float32_precision
 from ..models.unet import BN_MOMENTUM
-
-_A9 = "cross-process statistics are data parallelism, not ported yet (ROADMAP A9)"
+from ..parallel.mesh import sum_over_world
 
 
 def _stat_buffers(module: torch.nn.Module) -> dict:
@@ -79,14 +82,18 @@ class BNRefresher:
             the module's device.
           generator: the dropout generator (ignored when deterministic); a
             generator seeded with 0 when None.
-          cross_process: ROADMAP A9; raises.
+          cross_process: sum the accumulators and their count over every
+            rank of the initialised process group (an all-reduce on the
+            device, equal to JAX's gather-then-sum). Every rank must call
+            with the same number of batches of one size; unequal counts
+            raise on every rank.
 
         Returns ``{buffer name: tensor}`` for every ``running_mean`` and
         ``running_var``, as ``parallel.train_step.batch_stats`` gives
         them. The forwards run in full float32 (``float32_precision``).
         Raises ValueError on an empty ``batches``."""
-        if cross_process:
-            raise NotImplementedError(_A9)
+        if cross_process and not dist.is_initialized():
+            raise ValueError("cross_process=True needs an initialised process group")
         module = self._module
         device = next(module.parameters()).device
         if generator is None:
@@ -111,6 +118,8 @@ class BNRefresher:
         finally:
             module.load_state_dict(saved)
             module.train(was_training)
+        if cross_process:
+            total, count = _sum_over_world(total, count, device)
         if total is None:
             raise ValueError("BNRefresher needs >= 1 batch")
         avg = {k: v / count for k, v in total.items()}
@@ -121,6 +130,25 @@ class BNRefresher:
                 value = torch.maximum(value - mean**2, torch.zeros((), device=value.device))
             out[name] = value
         return out
+
+
+def _sum_over_world(total, count: int, device) -> tuple:
+    """``(total, count)`` summed over every rank. The counts are compared
+    first, on every rank, so that unequal counts (an empty rank included)
+    raise everywhere instead of leaving a rank in the sum."""
+    counts = torch.tensor([count, -count], dtype=torch.int64, device=device)
+    dist.all_reduce(counts, op=dist.ReduceOp.MAX)
+    most, fewest = int(counts[0]), -int(counts[1])
+    if most != fewest:
+        raise ValueError(
+            f"cross-process BN refresh: ranks hold {fewest} to {most} batches; "
+            "every rank must pass the same number"
+        )
+    if total is None:
+        return None, 0
+    names = list(total)
+    summed = sum_over_world([total[k] for k in names])
+    return dict(zip(names, summed)), count * dist.get_world_size()
 
 
 def compute_precise_batch_stats(

@@ -15,18 +15,22 @@ Two forwards feed the fused pipeline:
   maps (CUDA kernel ``minpath_delineate``) -> uint16 rows.
 
 The weights live in the modules, so the pipeline is ``fn(images)`` where
-the JAX one is ``fn(variables, images)``. Mesh sharding is not ported
-(ROADMAP A9).
+the JAX one is ``fn(variables, images)``. Over a mesh of ranks each rank
+runs its rows of the batch through its own forward and min-path kernel,
+with no collective on the device, and the outputs are gathered on the
+host.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from .._device import float32_precision, resolve_device
 from ..models.unet import UNetModule, fold_batchnorm
+from ..parallel.mesh import all_gather_host
 from . import boundary as boundary_ops
 from . import minpath as minpath_ops
 from .s2d_unet import d2s, maybe_build_s2d_apply
@@ -149,6 +153,7 @@ def make_fused_pipeline(
     num_classes: int = None,
     return_maps: bool = True,
     device=None,
+    mesh=None,
 ) -> Callable:
     """End-to-end pipeline on ``device`` (None means CUDA):
     ``fn(images_u8 (B, H, W, C)) -> (labels u8 (B, H, W), boundary maps
@@ -160,13 +165,19 @@ def make_fused_pipeline(
     s2d layout, from ``build_s2d_apply(..., output="labels_s2d")``), it
     replaces ``module``: the boundary maps and the min-path stay in the
     s2d domain. It needs ``num_classes``. The forward that runs is moved
-    to ``device``."""
+    to ``device``.
+
+    ``mesh`` (a :class:`..parallel.mesh.Mesh`) makes the pipeline
+    data-parallel: every rank calls it with the same batch, which must
+    split evenly over the ranks; each rank runs its rows
+    (``mesh.world_rows``) on ``mesh.device``, and every rank gets the whole
+    batch's outputs, gathered over the host group, as CPU tensors."""
     if labels_apply_fn is not None and num_classes is None:
         raise ValueError(
             "make_fused_pipeline: labels_apply_fn requires num_classes "
             "(the s2d labels carry no channel axis to infer it from)"
         )
-    device = resolve_device(device)
+    device = resolve_device(mesh.device if mesh is not None and device is None else device)
     if labels_apply_fn is not None:
         labels_apply_fn = labels_apply_fn.to(device).eval()
     else:
@@ -213,4 +224,19 @@ def make_fused_pipeline(
             )
             return labels, maps_out, rows.to(torch.uint16)
 
-    return pipeline
+    if mesh is None:
+        return pipeline
+
+    def sharded(images):
+        images = torch.as_tensor(images)
+        local = [
+            None if t is None else t.cpu().numpy()
+            for t in pipeline(images[mesh.world_rows(images.shape[0])])
+        ]
+        parts = all_gather_host(local, mesh)
+        return tuple(
+            None if t is None else torch.from_numpy(np.concatenate([part[i] for part in parts]))
+            for i, t in enumerate(local)
+        )
+
+    return sharded

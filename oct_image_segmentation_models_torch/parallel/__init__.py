@@ -1,2 +1,2 @@
-"""One-device train and eval steps and the optimizers; data parallelism is
-ROADMAP A9."""
+"""Train and eval steps, the optimizers and data parallelism over a mesh
+of ranks (``torch.distributed``, one process per device)."""

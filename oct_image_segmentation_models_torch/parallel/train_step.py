@@ -1,5 +1,5 @@
 """Train and eval steps and the optimizers, counterpart of the JAX
-package's ``parallel/train_step.py``, on one device.
+package's ``parallel/train_step.py``.
 
 - :class:`TrainState` holds the module (its parameters and BatchNorm
   statistics), the optimizer and the step count.
@@ -22,8 +22,20 @@ package's ``parallel/train_step.py``, on one device.
   round differently for the rest, so every rule here follows the optax
   source op for op.
 
-Data parallelism (``impl="shard_map"``, a mesh of more than one device,
-cross-process statistics) is ROADMAP A9 and raises ``NotImplementedError``.
+Data parallelism over a :class:`.mesh.Mesh` (one process per device),
+as JAX's ``impl`` picks it:
+
+- ``"shard_map"`` (``"auto"`` on more than one rank): each rank steps on
+  its own rows with per-replica BatchNorm; DDP averages the gradients over
+  the world (``broadcast_buffers=False``: DDP's default would overwrite
+  every rank's running statistics with rank 0's); the loss, the metric
+  and the new running statistics are then averaged over the world (JAX's
+  ``pmean``); each rank draws dropout from its own generator (JAX folds
+  the device index into the key). The eval step averages its loss and
+  metric likewise.
+- ``"spmd"`` (``"auto"`` on one rank) is the one-device step. On more
+  than one rank JAX computes it on the global batch, BatchNorm statistics
+  and the Dice sums included; that is ROADMAP A9b and raises.
 """
 
 from __future__ import annotations
@@ -37,15 +49,35 @@ import numpy as np
 import torch
 
 from .._device import float32_precision
+from ..ops.bn_refresh import _stat_buffers
+from . import mesh as mesh_lib
 
-_A9 = "data parallelism is not ported to PyTorch yet (ROADMAP A9)"
+_A9B = (
+    "impl='spmd' on more than one rank (global-batch BatchNorm and Dice sums) "
+    "is not ported to PyTorch yet (ROADMAP A9b); use 'shard_map' or 'auto'"
+)
 
 
-def _check_single_device(mesh, impl: str) -> None:
-    if impl == "shard_map" or mesh is not None:
-        raise NotImplementedError(f"impl={impl!r} with mesh={mesh!r}: {_A9}")
-    if impl not in ("auto", "spmd"):
+def _resolve_impl(mesh, impl: str) -> str:
+    """"one" (the one-device step) or "replica" (per-replica over ``mesh``)."""
+    if impl not in ("auto", "spmd", "shard_map"):
         raise ValueError(f"unknown train step impl: {impl}")
+    if mesh is None:
+        if impl == "shard_map":
+            raise ValueError(
+                "impl='shard_map' needs a mesh: initialise a process group and "
+                "pass parallel.mesh.create_mesh()"
+            )
+        return "one"
+    if not isinstance(mesh, mesh_lib.Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+    if impl == "auto":
+        impl = "spmd" if mesh.world == 1 else "shard_map"
+    if impl == "spmd":
+        if mesh.world > 1:
+            raise NotImplementedError(_A9B)
+        return "one"
+    return "replica"
 
 
 @dataclass
@@ -57,8 +89,11 @@ class TrainState:
 
 def create_train_state(module: torch.nn.Module, tx: Callable, mesh=None) -> TrainState:
     """A fresh state: ``tx`` (from :func:`build_optimizer`) is called on the
-    module's parameters."""
-    _check_single_device(mesh, "auto")
+    module's parameters. With a mesh of more than one rank, every rank
+    takes rank 0's parameters and statistics, as JAX replicates the state
+    over the mesh."""
+    if mesh is not None and mesh.world > 1:
+        mesh_lib.broadcast_module(module)
     return TrainState(module=module, optimizer=tx(list(module.parameters())), step=0)
 
 
@@ -77,33 +112,50 @@ def make_train_step(
     labels)`` is optional device-side batch preparation (augmentation and
     the model's preprocess) run inside the step; with it, the step takes
     the generator's per-sample ``choices``. The augmentation draws from
-    ``generator`` first, then the dropout mask. ``impl`` "auto" and "spmd"
-    are the one-device step; "shard_map" and any mesh are ROADMAP A9.
+    ``generator`` first, then the dropout mask. ``impl`` and ``mesh`` as
+    in the module docstring: over a mesh each rank passes its own rows and
+    generator and gets the world's mean loss and metric.
 
     The step's keyword ``on_phase(name)``, when given, is called at the end
     of each of its phases, "forward" (the forward, loss and metric),
-    "backward" and "optimizer": a hook to time the step's split, e.g. by
-    recording a CUDA event."""
-    _check_single_device(mesh, impl)
+    "backward" (with the averaging over the world) and "optimizer": a hook
+    to time the step's split, e.g. by recording a CUDA event."""
+    replica = _resolve_impl(mesh, impl) == "replica"
+    forward = module
+    stats = list(_stat_buffers(module).values())
+    if replica:
+        from torch.nn.parallel import DistributedDataParallel
+
+        forward = DistributedDataParallel(
+            module,
+            device_ids=[mesh.device] if mesh.device.type == "cuda" else None,
+            broadcast_buffers=False,
+        )
 
     def train_step(state: TrainState, images, labels, generator, choices=None, *, on_phase=None):
         mark = on_phase or (lambda name: None)
         with float32_precision():
-            module.train()
+            forward.train()
             if input_transform is not None:
                 images, labels = input_transform(generator, images, labels, choices)
-            out = module(images, generator=generator)
+            out = forward(images, generator=generator)
             loss = loss_fn(labels, out)
             with torch.no_grad():
                 metric = metric_fn(labels, out)
             mark("forward")
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            loss = loss.detach()
+            if replica:
+                with torch.no_grad():
+                    *means, loss, metric = mesh_lib.mean_over_world(stats + [loss, metric], mesh)
+                    for buf, mean in zip(stats, means):
+                        buf.copy_(mean)
             mark("backward")
             state.optimizer.step()
             mark("optimizer")
         state.step += 1
-        return state, loss.detach(), metric
+        return state, loss, metric
 
     return train_step
 
@@ -117,25 +169,25 @@ def make_eval_step(
 ) -> Callable:
     """Returns ``eval_step(state, images, labels) -> (loss, metric)``, the
     eval-mode forward (running BatchNorm statistics, no dropout) in full
-    float32."""
-    _check_single_device(mesh, impl)
+    float32; over a mesh, on each rank's rows, with the world's mean loss
+    and metric."""
+    replica = _resolve_impl(mesh, impl) == "replica"
 
     def eval_step(state: TrainState, images, labels):
         module.eval()
         with torch.no_grad(), float32_precision():
             out = module(images)
-            return loss_fn(labels, out), metric_fn(labels, out)
+            loss, metric = loss_fn(labels, out), metric_fn(labels, out)
+            if replica:
+                loss, metric = mesh_lib.mean_over_world([loss, metric], mesh)
+            return loss, metric
 
     return eval_step
 
 
 def batch_stats(module: torch.nn.Module) -> dict:
     """The BatchNorm running statistics, ``{buffer name: tensor}`` (copies)."""
-    return {
-        name: buf.detach().clone()
-        for name, buf in module.named_buffers()
-        if name.endswith(("running_mean", "running_var"))
-    }
+    return {name: buf.detach().clone() for name, buf in _stat_buffers(module).items()}
 
 
 def load_batch_stats(module: torch.nn.Module, stats: dict) -> None:

@@ -2,10 +2,16 @@
 ``prediction/streaming.py::VolumeSegmenter``.
 
 A volume of B-scans goes through the fused pipeline
-(:func:`..ops.inference.make_fused_pipeline`) in fixed-size batches. Each
-batch is copied from pinned host memory with ``non_blocking=True``, and
-the results stay on the device until the volume is done, so the host
-queues the next batch while the card works on the current one.
+(:func:`..ops.inference.make_fused_pipeline`) in fixed-size batches.
+:func:`..parallel.input_pipeline.device_prefetch` copies each batch from
+pinned host memory on a side stream, ``prefetch`` batches ahead, and the
+results stay on the device until the volume is done, so the host queues
+the next batch while the card works on the current one.
+
+Over a mesh of ranks every rank passes the same volume: each segments an
+equal contiguous chunk of it on its own device (the tail padded with the
+last B-scan), and the chunks are gathered on the host, so every rank
+returns the whole volume's outputs, equal to a one-rank run's.
 """
 
 from __future__ import annotations
@@ -16,10 +22,17 @@ import torch
 from .._device import resolve_device
 from ..models import get_model_class
 from ..ops.inference import make_fused_pipeline, select_optimized_forward
+from ..parallel.input_pipeline import device_prefetch
+from ..parallel.mesh import all_gather_host
 
 
 class VolumeSegmenter:
-    """Reusable fused-pipeline runner for fixed-size B-scans."""
+    """Reusable fused-pipeline runner for fixed-size B-scans.
+
+    With ``mesh`` (a :class:`..parallel.mesh.Mesh`) the pipeline runs on
+    ``mesh.device``, and ``batch_size`` is a node's batch, as it is a JAX
+    process's: each rank runs batches of ``batch_size // mesh.local_size``
+    B-scans, as each device of the JAX process's mesh does."""
 
     def __init__(
         self,
@@ -38,15 +51,18 @@ class VolumeSegmenter:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel serving over a mesh is not ported yet (ROADMAP A9)"
-            )
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
-        self.device = resolve_device(device)
+        if mesh is not None and batch_size % mesh.local_size:
+            raise ValueError(
+                f"batch_size={batch_size} must be a multiple of the node's "
+                f"{mesh.local_size} ranks for data-parallel inference"
+            )
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.loaded_model = loaded_model
         self.batch_size = batch_size
+        self._rank_batch = batch_size // (mesh.local_size if mesh is not None else 1)
         container = get_model_class(loaded_model.name)(**model_config)
         self._model_div = container.spatial_divisor
         # The s2d labels forward for an eligible U-Net, else the BN-folded
@@ -68,18 +84,42 @@ class VolumeSegmenter:
             device=self.device,
         )
 
-    def segment_volume(self, volume: np.ndarray):
-        """Segment a ``(num_bscans, H, W, C)`` uint8 volume.
+    def segment_volume(self, volume: np.ndarray, prefetch: int = 2):
+        """Segment a ``(num_bscans, H, W, C)`` uint8 volume, copying
+        ``prefetch`` batches ahead.
 
         Returns ``(labels u8 (N, H, W), boundary rows u16 (N, M, W))`` as
-        numpy; rows are None without graph search."""
+        numpy; rows are None without graph search. Over a mesh every rank
+        passes the same volume and gets the same outputs."""
         n = volume.shape[0]
         if n == 0:
             raise ValueError(
                 "segment_volume requires at least one B-scan "
                 "(got an empty volume)"
             )
-        b = self.batch_size
+        if self.mesh is not None:
+            return self._segment_volume_multiproc(volume, prefetch)
+        return self._segment_local(volume, prefetch)
+
+    def _segment_volume_multiproc(self, volume: np.ndarray, prefetch: int):
+        n = volume.shape[0]
+        world, rank = self.mesh.world, self.mesh.rank
+        # Equal chunks (the last ranks padded with the final B-scan), so that
+        # the gathered outputs stack in rank order.
+        chunk = -(-n // world)
+        lo = min(rank * chunk, n)
+        local = volume[lo : lo + chunk]
+        if local.shape[0] < chunk:
+            filler = np.repeat(volume[-1:], chunk - local.shape[0], axis=0)
+            local = np.concatenate([local, filler]) if local.size else filler
+        parts = all_gather_host(self._segment_local(local, prefetch), self.mesh)
+        labels = np.concatenate([p[0] for p in parts])[:n]
+        rows = None if parts[0][1] is None else np.concatenate([p[1] for p in parts])[:n]
+        return labels, rows
+
+    def _segment_local(self, volume: np.ndarray, prefetch: int):
+        n = volume.shape[0]
+        b = self._rank_batch
         pad = (-n) % b
         if pad:
             volume = np.concatenate([volume, volume[-1:].repeat(pad, 0)])
@@ -91,12 +131,9 @@ class VolumeSegmenter:
                 f"spatial downsampling factor)"
             )
 
-        pin = self.device.type == "cuda"
+        batches = (volume[i : i + b] for i in range(0, len(volume), b))
         labels_out, rows_out = [], []
-        for i in range(0, len(volume), b):
-            batch = torch.from_numpy(np.ascontiguousarray(volume[i : i + b]))
-            if pin:
-                batch = batch.pin_memory()
+        for batch in device_prefetch(batches, size=prefetch, device=self.device):
             labels, _maps, rows = self._pipeline(batch)
             labels_out.append(labels)
             if rows is not None:

@@ -1,5 +1,5 @@
 """Training driver, counterpart of the JAX package's
-``training/training.py::train_model`` on one process and one device.
+``training/training.py::train_model``.
 
 The configuration surface, the run artifacts (``model_config.json``,
 ``training_params.hdf5``, ``model_epochNN.hdf5``, ``stats_epochNN.hdf5``,
@@ -16,9 +16,22 @@ batches uploaded from pinned memory -> ``train_step`` -> ``eval_step`` ->
 own (module and optimizer tensors by name, the ``torch.Generator`` state
 in its meta); a JAX train state is refused.
 
-Not ported: data parallelism (ROADMAP A9), the space-to-depth training
-forward (``train_forward_impl="s2d"``; "auto" trains the plain module),
-Orbax checkpoints (A12).
+In an initialised ``torch.distributed`` process group the run is data
+parallel over the ranks' :class:`..parallel.mesh.Mesh`, as the JAX
+``train_model``'s multi-process branches are over its processes and
+devices: each node keeps its strided shard of the training and
+validation sets (trimmed to floor(N / nodes), dropped samples unlogged
+as in JAX) and draws batches of ``batch_size // nodes``, of which each
+local rank steps on its rows; the epoch-boundary stop and the finalisation's refresh skip
+are agreed over every rank; the precise-BN refresh sums over every rank;
+only rank 0 tracks the run and writes artifacts and the train state (with
+every rank's step generator); with ``profile_dir`` each rank traces its
+first epoch into ``trace_rank{rank}.json``. Without a process group it is
+the one-device run, its batches through the same producer thread.
+
+Not ported: the space-to-depth training forward
+(``train_forward_impl="s2d"``; "auto" trains the plain module), Orbax
+checkpoints (A12).
 """
 
 from __future__ import annotations
@@ -35,14 +48,17 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..common import custom_losses, custom_metrics
 from ..common import data_generator as data_gen
 from ..common import dataset_loader, model_io, profiling, utils
 from ..common.mlflow_parameters import MLflowParameters
-from ..common.tracking import get_tensorboard_writer, get_tracker
+from ..common.tracking import NullTracker, get_tensorboard_writer, get_tracker
 from ..models import get_model_class
+from ..parallel.input_pipeline import prefetch_to_mesh
+from ..parallel.mesh import Mesh, all_gather_host, any_rank, create_mesh
 from ..parallel.train_step import (
     KERAS_OPTIMIZER_NAMES,
     batch_stats,
@@ -503,6 +519,15 @@ def _refresh_seed(seed, epoch: Optional[int] = None) -> int:
     return base if epoch is None else base + epoch + 1
 
 
+def _rank_seed(seed: int, rank: int, world: int) -> int:
+    """Seed of a rank's step generator (dropout and device augmentation):
+    the run's seed on one rank; one stream per rank on more, as JAX folds
+    the device index into the step's key."""
+    if world == 1:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+
+
 def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host batch on ``device``, from pinned memory on a card."""
     tensor = torch.from_numpy(np.ascontiguousarray(array))
@@ -521,11 +546,16 @@ def train_model(
     training_params: TrainingParams,
     mlflow_params: Optional[MLflowParameters] = None,
 ) -> Path:
-    """Train a model on ``training_params.device`` (None means CUDA);
-    returns the run's save folder."""
+    """Train a model on ``training_params.device`` (None means CUDA, and
+    ``cuda:{local rank}`` in a process group); returns the run's save
+    folder."""
     import h5py
 
-    device = resolve_device(training_params.device)
+    mesh = create_mesh(device=training_params.device) if dist.is_initialized() else None
+    device = mesh.device if mesh is not None else resolve_device(training_params.device)
+    world, nodes = (mesh.world, mesh.nodes) if mesh is not None else (1, 1)
+    rank = mesh.rank if mesh is not None else 0
+    is_main_process = rank == 0
     if training_params.checkpoint_format == "orbax":
         raise NotImplementedError(
             "checkpoint_format='orbax' is not ported to PyTorch yet (ROADMAP A12)"
@@ -536,7 +566,8 @@ def train_model(
             "ported to PyTorch; 'auto' and 'parity' train the plain module "
             "(ROADMAP C)"
         )
-    tracker = get_tracker(mlflow_params)
+    # Tracking (MLflow's network calls included) is rank 0's alone.
+    tracker = get_tracker(mlflow_params) if is_main_process else NullTracker()
 
     training_dataset_path = training_params.training_dataset_path
     with h5py.File(training_dataset_path, "r") as hdf5_file:
@@ -553,6 +584,27 @@ def train_model(
         c_weight = np.array(training_params.class_weight)
     else:
         c_weight = None
+
+    # The class count and weights above come from the full label set, so
+    # every node agrees on them; then each node keeps its strided shard,
+    # trimmed so that every node runs the same number of steps.
+    if world > 1 and training_params.batch_size % world:
+        raise ValueError(
+            f"batch_size ({training_params.batch_size}) must be divisible by "
+            f"the {world} ranks"
+        )
+    if nodes > 1:
+        shard = slice(mesh.node, None, nodes)
+        n_tr = len(train_images) // nodes
+        n_va = len(val_images) // nodes
+        train_images = train_images[shard][:n_tr]
+        train_labels = train_labels[shard][:n_tr]
+        val_images = val_images[shard][:n_va]
+        val_labels = val_labels[shard][:n_va]
+        log.info(
+            f"Node {mesh.node}/{nodes}: {len(train_images)} train / "
+            f"{len(val_images)} val samples"
+        )
 
     _, image_height, image_width, input_channels = train_images.shape
     log.info(
@@ -592,7 +644,7 @@ def train_model(
     training_dataset_md5 = utils.md5(training_dataset_path)
     seed = training_params.seed or 0
     # The step generator: dropout masks and device augmentation noise.
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = torch.Generator(device=device).manual_seed(_rank_seed(seed, rank, world))
 
     resume_meta, resume_arrays = None, None
     if training_params.resume_train_state:
@@ -666,7 +718,7 @@ def train_model(
         )
         model_name = model_architecture
 
-    state = create_train_state(module, tx)
+    state = create_train_state(module, tx, mesh)
 
     start_epoch = 0
     resume_best = None
@@ -676,7 +728,13 @@ def train_model(
             state, resume_arrays, resume_meta["optimizer_scalars"]
         )
         state.step = int(resume_meta["step"])
-        generator.set_state(torch.from_numpy(np.asarray(resume_meta["generator_state"])))
+        saved_states = resume_meta.get("generator_states", [resume_meta.get("generator_state")])
+        if len(saved_states) != world:
+            raise ValueError(
+                f"the train state was written by a run of {len(saved_states)} "
+                f"rank(s); it resumes only at that world size, not at {world}"
+            )
+        generator.set_state(torch.from_numpy(np.asarray(saved_states[rank])))
         start_epoch = int(resume_meta["epoch"])
         log.info(f"Resumed at epoch {start_epoch} (step {state.step})")
 
@@ -715,13 +773,15 @@ def train_model(
             im, lb = device_augmenter(gen, im, lb, ch)
             return preprocess_fn(im * 255.0), lb
 
+    # Each node assembles its batch; each of its ranks steps on its rows.
+    local_batch_size = training_params.batch_size // nodes
     train_step = make_train_step(
-        module, loss_fn, metric_fn,
+        module, loss_fn, metric_fn, mesh,
         impl=training_params.train_step_impl,
         input_transform=input_transform,
     )
     eval_step = make_eval_step(
-        module, loss_fn, metric_fn, impl=training_params.train_step_impl
+        module, loss_fn, metric_fn, mesh, impl=training_params.train_step_impl
     )
 
     monitor_name, monitor_mode = training_params.model_save_monitor
@@ -748,11 +808,13 @@ def train_model(
         / Path(tracker.run_id)
         / Path(f"{timestamp}_{model_architecture}")
     )
-    os.makedirs(save_foldername)
+    if is_main_process:
+        # The other ranks train and write nothing.
+        os.makedirs(save_foldername)
     tracker.set_run_folder(save_foldername)
     tb_writer = (
         get_tensorboard_writer(save_foldername / "tensorboard")
-        if training_params.tensorboard
+        if training_params.tensorboard and is_main_process
         else None
     )
     ckpt_save, ckpt_suffix = model_io.save_model, ".hdf5"
@@ -795,22 +857,22 @@ def train_model(
     opt_config = resolved_optimizer_config(
         training_params.opt_con, training_params.opt_params
     )
-    save_training_params_file(
-        save_foldername,
-        model_summary,
-        model_container.get_config(),
-        training_dataset_md5,
-        c_weight,
-        timestamp,
-        training_params,
-        opt_config,
-    )
+    if is_main_process:
+        save_training_params_file(
+            save_foldername,
+            model_summary,
+            model_container.get_config(),
+            training_dataset_md5,
+            c_weight,
+            timestamp,
+            training_params,
+            opt_config,
+        )
 
-    batch_size = training_params.batch_size
     train_gen = data_gen.DataGenerator(
         train_images,
         train_labels_model,
-        batch_size,
+        local_batch_size,
         training_params.aug_fn_args,
         training_params.aug_mode,
         training_params.aug_probs,
@@ -823,7 +885,7 @@ def train_model(
     val_gen = data_gen.DataGenerator(
         val_images,
         val_labels_model,
-        batch_size,
+        local_batch_size,
         aug_val_fn_args,
         aug_val_mode,
         aug_val_probs,
@@ -835,9 +897,9 @@ def train_model(
 
     for name, gen in (("training", train_gen), ("validation", val_gen)):
         total = gen.get_total_samples()
-        if batch_size > total:
+        if local_batch_size > total:
             raise ValueError(
-                f"The batch size ({batch_size}) cannot be "
+                f"The batch size ({local_batch_size}) cannot be "
                 f"larger than the number of {name} samples ({total})"
             )
         log.info(f"{name} generator total number of samples: {total}")
@@ -855,7 +917,7 @@ def train_model(
     # Equal-size batches (the law-of-total-variance aggregation assumes
     # them); one all-images batch when the training set is smaller than
     # the batch size.
-    stat_bs = min(batch_size, len(train_images))
+    stat_bs = min(local_batch_size, len(train_images))
     n_stat_full = (len(train_images) // stat_bs) * stat_bs
 
     # Device-resident cache of the preprocessed stat batches: each epoch's
@@ -890,9 +952,11 @@ def train_model(
     def _refresh_stats(params, refresh_seed: int) -> dict:
         """Precise population BN statistics of the (un-augmented) training
         images under ``params`` (a snapshot, or None for the module's
-        current weights)."""
+        current weights). Over several ranks every rank runs its node's
+        batches and the sums cover every node's shard (every rank must
+        call this together)."""
         gen = torch.Generator(device=device).manual_seed(refresh_seed)
-        return bn_refresher(params, _stat_batches(), generator=gen)
+        return bn_refresher(params, _stat_batches(), generator=gen, cross_process=world > 1)
 
     use_precise_val = training_params.bn_precise_val and bn_refresher is not None
     if use_precise_val:
@@ -933,7 +997,8 @@ def train_model(
                 save_foldername / f"model_epoch{best_ckpt_epoch:02d}{ckpt_suffix}"
             )
             best_ckpt_variables = resume_best
-            ckpt_save(best_ckpt_path, model_name, model_container.get_config(), resume_best)
+            if is_main_process:
+                ckpt_save(best_ckpt_path, model_name, model_container.get_config(), resume_best)
         if (
             training_params.early_stopping
             and epochs_since_improvement >= training_params.patience
@@ -947,12 +1012,31 @@ def train_model(
             )
             start_epoch = training_params.epochs
             stopped_early = True
-    history.on_train_begin()
+    if is_main_process:
+        history.on_train_begin()
 
     # SIGTERM/SIGINT (with train_state_checkpoint on) finish the current
     # batch, skip the remaining epochs and fall through to finalisation;
     # the train-state file of the last completed epoch is the resume point.
     interrupt_flag = []
+    # One input pipeline at any world size: the rank's rows of each node
+    # batch, assembled on a producer thread (a one-device run is a mesh of
+    # one that needs no process group).
+    batch_mesh = mesh or Mesh(1, 1, 0, device)
+    # Each rank traces its own epoch 0 into a file of its own, as JAX's
+    # profiler writes one per process.
+    trace_name = profiling.TRACE_FILENAME if world == 1 else f"trace_rank{rank}.json"
+
+    def _collective_any(flag) -> bool:
+        """True on every rank when ``flag`` is True on any. Every decision
+        that follows from a rank's interrupt flag goes through this one
+        helper: the epoch loop's stop and the finalisation's refresh skip
+        both gate collectives, and a rank-local decision at either would
+        leave the other ranks waiting in the next collective."""
+        if world > 1 and training_params.train_state_checkpoint:
+            return any_rank(flag, mesh)
+        return bool(flag)
+
     prev_handlers = {}
     if training_params.train_state_checkpoint:
         import signal as _signal
@@ -971,28 +1055,36 @@ def train_model(
 
     try:
         for epoch in range(start_epoch, training_params.epochs):
-            history.on_epoch_begin(epoch)
+            if is_main_process:
+                history.on_epoch_begin(epoch)
             profile_ctx = (
-                profiling.trace(training_params.profile_dir)
+                profiling.trace(training_params.profile_dir, trace_name)
                 if epoch == 0
                 else contextlib.nullcontext()
             )
             train_losses, train_metrics = [], []
             with profile_ctx:
-                for host_batch in train_gen:
-                    if interrupt_flag:
+                # With device augmentation the generator's per-sample
+                # choices ride along as a third array.
+                batches = (
+                    (np.asarray(b[0], np.float32), np.asarray(b[1]))
+                    + ((np.asarray(b[2], np.int32),) if use_aug_device else ())
+                    for b in train_gen
+                )
+                for batch in prefetch_to_mesh(batches, batch_mesh):
+                    # The per-batch stop only on one rank: over several, a
+                    # rank that stopped alone would leave the others waiting
+                    # in the next step's collectives.
+                    if interrupt_flag and world == 1:
                         break
-                    images = _upload(np.asarray(host_batch[0], np.float32), device)
-                    labels = _upload(np.asarray(host_batch[1]), device)
-                    extra = ()
-                    if use_aug_device:
-                        extra = (_upload(np.asarray(host_batch[2], np.int32), device),)
                     state, loss_val, metric_val = train_step(
-                        state, images, labels, generator, *extra
+                        state, batch[0], batch[1], generator, *batch[2:]
                     )
                     train_losses.append(loss_val)
                     train_metrics.append(metric_val)
-            if interrupt_flag:
+            # Every rank reaches this agreement after the same number of
+            # steps, so the run stops on all ranks together or on none.
+            if _collective_any(interrupt_flag):
                 state_file = save_foldername / TRAIN_STATE_FILENAME
                 if state_file.exists():
                     log.warning(
@@ -1028,12 +1120,9 @@ def train_model(
                 rolling = batch_stats(module)
                 load_batch_stats(module, _refresh_stats(None, _refresh_seed(seed, epoch)))
             val_losses, val_metrics = [], []
-            for images, labels in val_gen:
-                loss_val, metric_val = eval_step(
-                    state,
-                    _upload(np.asarray(images, np.float32), device),
-                    _upload(np.asarray(labels), device),
-                )
+            val_batches = ((np.asarray(bi, np.float32), np.asarray(bl)) for bi, bl in val_gen)
+            for images, labels in prefetch_to_mesh(val_batches, batch_mesh):
+                loss_val, metric_val = eval_step(state, images, labels)
                 val_losses.append(loss_val)
                 val_metrics.append(metric_val)
             if rolling is not None:
@@ -1047,7 +1136,8 @@ def train_model(
                 "val_" + training_params.metric: _mean(val_metrics),
             }
             log.info(f"Epoch {epoch + 1}/{training_params.epochs}: {logs}")
-            history.on_epoch_end(epoch, logs)
+            if is_main_process:
+                history.on_epoch_end(epoch, logs)
             tracker.log_metrics(logs, step=epoch + 1)
             if tb_writer is not None:
                 tb_writer.log_metrics(logs, step=epoch + 1)
@@ -1064,9 +1154,10 @@ def train_model(
                 best_ckpt_path = save_foldername / f"model_epoch{epoch + 1:02d}{ckpt_suffix}"
                 best_ckpt_variables = state_host
                 best_ckpt_epoch = epoch + 1
-                ckpt_save(
-                    best_ckpt_path, model_name, model_container.get_config(), state_host
-                )
+                if is_main_process:
+                    ckpt_save(
+                        best_ckpt_path, model_name, model_container.get_config(), state_host
+                    )
 
             if training_params.early_stopping:
                 es_value = logs["val_" + training_params.metric]
@@ -1078,6 +1169,14 @@ def train_model(
                     epochs_since_improvement += 1
 
             if training_params.train_state_checkpoint:
+                # Every rank's step generator, gathered before rank 0 writes.
+                gen_state = generator.get_state().numpy()
+                gen_states = (
+                    {"generator_states": all_gather_host(gen_state, mesh)}
+                    if world > 1
+                    else {"generator_state": gen_state}
+                )
+            if training_params.train_state_checkpoint and is_main_process:
                 arrays, opt_scalars = _state_arrays(state, best_variables, es_best_variables)
                 save_train_state(
                     save_foldername / TRAIN_STATE_FILENAME,
@@ -1085,7 +1184,7 @@ def train_model(
                     {
                         "epoch": epoch + 1,
                         "step": state.step,
-                        "generator_state": generator.get_state().numpy(),
+                        **gen_states,
                         "optimizer_scalars": opt_scalars,
                         "best_monitor": best_monitor,
                         "best_es": best_es,
@@ -1120,7 +1219,8 @@ def train_model(
                 # signal.signal() returns None for a handler installed from C
                 _signal.signal(_sig, _signal.SIG_DFL if _h is None else _h)
 
-    history.on_train_end()
+    if is_main_process:
+        history.on_train_end()
 
     # Keras 2.9 EarlyStopping: restore_best_weights applies only when early
     # stopping triggered, and restores its own best (val_<metric>/max).
@@ -1136,16 +1236,18 @@ def train_model(
     # Precise-BN finalisation: population statistics of the (un-augmented)
     # training data under the final weights, and under the recorded
     # best/last checkpoint's weights for its re-save. Skipped after a
-    # SIGTERM/SIGINT: the resumed run's finalisation does it.
+    # SIGTERM/SIGINT: the resumed run's finalisation does it. Over several
+    # ranks the skip is agreed (the refresh is a collective).
+    interrupted = _collective_any(interrupt_flag)
     precise_stats_applied = (
         training_params.bn_precise_stats
         and _has_bn_stats(final_variables)
-        and not interrupt_flag
+        and not interrupted
     )
     if precise_stats_applied:
         log.info(
             "Finalizing BatchNorm statistics: exact population stats over "
-            f"{n_stat_full} training images (bn_precise_stats=True; set False "
+            f"{n_stat_full * nodes} training images (bn_precise_stats=True; set False "
             "for reference-exact rolling statistics). Only model_final and the "
             "recorded best/last model_epochNN file carry the precise statistics."
         )
@@ -1161,20 +1263,23 @@ def train_model(
                 for k in final_variables
                 if not k.endswith(("running_mean", "running_var"))
             )
+            # Every rank runs the refresh (it is a collective); rank 0 writes.
             best_final = (
                 final_variables if same_weights else _with_precise_stats(best_ckpt_variables)
             )
-            ckpt_save(best_ckpt_path, model_name, model_container.get_config(), best_final)
+            if is_main_process:
+                ckpt_save(best_ckpt_path, model_name, model_container.get_config(), best_final)
 
-    try:
-        with h5py.File(save_foldername / "training_params.hdf5", "a") as f:
-            f.attrs["bn_precise_stats_applied"] = bool(precise_stats_applied)
-    except OSError:  # artifact missing or unwritable: never fail the run
-        log.warning("could not record bn_precise_stats_applied in training_params.hdf5")
     final_path = save_foldername / f"model_final{ckpt_suffix}"
-    ckpt_save(final_path, model_name, model_container.get_config(), final_variables)
-    if final_path.is_file():
-        tracker.log_artifact(final_path, artifact_path="model")
+    if is_main_process:
+        try:
+            with h5py.File(save_foldername / "training_params.hdf5", "a") as f:
+                f.attrs["bn_precise_stats_applied"] = bool(precise_stats_applied)
+        except OSError:  # artifact missing or unwritable: never fail the run
+            log.warning("could not record bn_precise_stats_applied in training_params.hdf5")
+        ckpt_save(final_path, model_name, model_container.get_config(), final_variables)
+        if final_path.is_file():
+            tracker.log_artifact(final_path, artifact_path="model")
     if tb_writer is not None:
         tb_writer.close()
     tracker.end_run()

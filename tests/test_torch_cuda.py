@@ -483,3 +483,49 @@ def test_device_augmenter_on_the_card(cuda):
     noise = (ox[2] - x[2]).double().cpu().numpy()
     assert abs(noise.mean() - mean) <= 5 * np.sqrt(var / noise.size), noise.mean()
     assert abs(noise.var() - var) <= 0.03 * var, noise.var()
+
+
+def test_prefetch_copies_to_the_card(cuda):
+    """``device_prefetch`` and ``prefetch_to_mesh`` on the card: batches in
+    order, equal to the host's (the rank's rows for the mesh), used on the
+    consumer's stream after their copy on the side stream."""
+    from oct_image_segmentation_models_torch.parallel import input_pipeline as ip
+    from oct_image_segmentation_models_torch.parallel.mesh import Mesh
+
+    rng = np.random.default_rng(0)
+    batches = [
+        (rng.random((4, 256, 512, 1), dtype=np.float32), rng.integers(0, 3, (4, 256, 512, 1)).astype(np.int32))
+        for _ in range(5)
+    ]
+    got = [(x * 2, y + 1) for x, y in ip.device_prefetch(iter(batches), size=2, device=cuda)]
+    for (gx, gy), (x, y) in zip(got, batches):
+        assert gx.is_cuda and gy.is_cuda
+        assert np.array_equal(gx.cpu().numpy(), x * 2) and np.array_equal(gy.cpu().numpy(), y + 1)
+    mesh = Mesh(1, 2, 1, cuda)  # local rank 1 of a node of 2, no process group
+    got = [(x * 2, y) for x, y in ip.prefetch_to_mesh(iter(batches), mesh)]
+    assert len(got) == len(batches)
+    for (gx, gy), (x, y) in zip(got, batches):
+        assert np.array_equal(gx.cpu().numpy(), x[2:] * 2) and np.array_equal(gy.cpu().numpy(), y[2:])
+
+
+def test_create_mesh_puts_a_bare_cuda_on_the_local_card(cuda, tmp_path):
+    """A world of one over NCCL: ``create_mesh(device="cuda")`` (as
+    ``TrainingParams(device="cuda")`` under ``torchrun`` passes it) is the
+    local rank's card, ``cuda:0``, and the host group is gloo."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from oct_image_segmentation_models_torch.parallel import mesh as mesh_lib
+
+    mesh_lib.init_distributed(
+        "cuda", rank=0, world_size=1, init_method=f"file://{tmp_path / 'store'}",
+        timeout=timedelta(seconds=60),
+    )
+    try:
+        mesh = mesh_lib.create_mesh(device="cuda")
+        assert mesh.device == torch.device("cuda", 0)
+        assert dist.get_backend() == "nccl" and dist.get_backend(mesh.host_group) == "gloo"
+        assert mesh_lib.create_mesh(device="cuda").host_group is mesh.host_group
+        assert mesh_lib.all_gather_host({"rank": mesh.rank}, mesh) == [{"rank": 0}]
+    finally:
+        dist.destroy_process_group()

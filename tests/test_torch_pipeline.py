@@ -31,6 +31,7 @@ from oct_image_segmentation_models_torch.ops.inference import (
     make_fused_pipeline,
     select_optimized_forward,
 )
+from oct_image_segmentation_models_torch.parallel.mesh import Mesh
 from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
 
 from synth import make_layered_sample
@@ -201,8 +202,8 @@ def test_streaming_rejects_bad_input():
         seg.segment_volume(np.zeros((0, H, W, 1), np.uint8))
     with pytest.raises(ValueError, match="multiples of 8"):
         seg.segment_volume(np.zeros((2, H + 4, W, 1), np.uint8))
-    with pytest.raises(NotImplementedError, match="A9"):
-        VolumeSegmenter(loaded, config, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="multiple of the node's 3 ranks"):
+        VolumeSegmenter(loaded, config, batch_size=4, mesh=Mesh(1, 3, 0, torch.device("cpu")))
     with pytest.raises(ValueError, match="batch_size"):
         VolumeSegmenter(loaded, config, batch_size=0, device="cpu")
     with pytest.raises(ValueError, match="float32"):

@@ -341,19 +341,35 @@ def test_train_steps_match_jax(model, jax_masks, opt, steps):
     assert abs(float(gm) - wm) <= 1e-4 * abs(wm) + 1e-6
 
 
+def stub_mesh(nodes, local):
+    """A mesh of ``nodes`` x ``local`` ranks seen from rank 0, for the
+    checks that read only its shape (no process group)."""
+    return tts.mesh_lib.Mesh(nodes, local, 0, torch.device("cpu"))
+
+
 def test_step_impls_and_mesh():
+    """"auto" and "spmd" are the one-device step without a mesh;
+    "shard_map" needs a mesh (a process group); "spmd" on more than one
+    rank is ROADMAP A9b; an unknown impl or a mesh of another type raises."""
     module = _port_module_random()
     fn = tl.dice_loss_macro(is_y_true_sparse=True, num_classes=C)
     for impl in ("auto", "spmd"):
         tts.make_train_step(module, fn, fn, impl=impl)
         tts.make_eval_step(module, fn, fn, impl=impl)
-    for kwargs in ({"impl": "shard_map"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tts.make_train_step(module, fn, fn, **kwargs)
-        with pytest.raises(NotImplementedError, match="A9"):
-            tts.make_eval_step(module, fn, fn, **kwargs)
-    with pytest.raises(ValueError, match="unknown train step impl"):
-        tts.make_train_step(module, fn, fn, impl="pmap")
+    for make in (tts.make_train_step, tts.make_eval_step):
+        with pytest.raises(ValueError, match="needs a mesh"):
+            make(module, fn, fn, impl="shard_map")
+        with pytest.raises(NotImplementedError, match="A9b"):
+            make(module, fn, fn, mesh=stub_mesh(1, 2), impl="spmd")
+        with pytest.raises(NotImplementedError, match="A9b"):
+            make(module, fn, fn, mesh=stub_mesh(2, 1), impl="spmd")
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+            make(module, fn, fn, mesh=object())
+        with pytest.raises(ValueError, match="unknown train step impl"):
+            make(module, fn, fn, impl="pmap")
+    # one rank: "auto" and "spmd" are the one-device step, as in JAX
+    for impl in ("auto", "spmd"):
+        tts.make_train_step(module, fn, fn, mesh=stub_mesh(1, 1), impl=impl)
 
 
 def _port_module_random():
@@ -542,5 +558,5 @@ def test_bn_refresher_takes_params_and_refuses_cross_process(model):
         assert torch.equal(got[k], want[k])
     with pytest.raises(ValueError, match=">= 1 batch"):
         refresher(None, [])
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="initialised process group"):
         refresher(None, batches, cross_process=True)

@@ -356,7 +356,7 @@ def test_train_model_refusals(small_dataset, tmp_path):
         train_model(_params(small_dataset, tmp_path, checkpoint_format="orbax"))
     with pytest.raises(NotImplementedError, match="s2d"):
         train_model(_params(small_dataset, tmp_path, train_forward_impl="s2d"))
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         train_model(_params(small_dataset, tmp_path, train_step_impl="shard_map"))
     with pytest.raises(ValueError, match="model_save_monitor name"):
         train_model(_params(small_dataset, tmp_path, model_save_monitor=("val_acc2", "max")))
