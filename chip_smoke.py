@@ -76,6 +76,23 @@ Phases, each of which raises on failure:
      gathered labels and rows equal on every rank to the one-rank paths
      at the ranks' per-call batch of 4, bit for bit. Each rank counts its
      own kernel launches.
+   - the DeepLabV3+ path (``deeplab_path``), run before the data-parallel
+     path, on DeepLabV3+ (the ResNet50 backbone to conv4, DSPP, decoder,
+     4 classes) with seeded random weights and the gray B-scans repeated
+     over 3 channels: the eval-mode forward, plain and BN-folded, on the
+     card against the CPU at 2 x 128x256 (``PROB_ATOL``, argmax agreement);
+     the 20-B-scan volume at 512x1024 through the folded
+     ``make_fused_pipeline`` and ``VolumeSegmenter`` in both tie modes,
+     rows against the plain min-path, B1 launched and B2 and B3 not; one
+     train step at batch 2 of 64x128 on the card and on the CPU, each
+     step's gradients against the CPU float64 step that replays its ReLU
+     gates and max-pool picks (the card held to the larger of
+     ``STEP_GRAD_RTOL`` and ``DL_GRAD_CPU_FACTOR`` times the CPU float32
+     step's own error, per tensor); 30 train steps at batch 8 of 512x1024
+     from the ``DataGenerator`` (the loss must fall), the eval step,
+     ``BNRefresher``, and the trained weights served through B1. Its
+     serving times, FLOPs and profile and its train step's split and peak
+     memory are printed with the others.
 4. Times, with CUDA events (median of several runs after warm-up): both
    pipelines per batch and their stages, each kernel per call beside its
    plain version, its yardstick and its bound (B3: on the tensor cores,
@@ -1245,6 +1262,383 @@ def phase_train_path(rng, seed: int) -> dict:
     return out
 
 
+# --- the DeepLabV3+ path ---------------------------------------------------
+
+DL_CHECK_H, DL_CHECK_W, DL_CHECK_BATCH = 64, 128, 2
+DL_FWD_H, DL_FWD_W = 128, 256
+DL_TRAIN_STEPS = 30
+DL_TRAIN_TIMED = 5
+DL_TRAIN_WARMUP = 2
+# The card's DeepLab step against the replaying float64 step: the float32
+# step itself, on the CPU as on the card, sits up to a few 1e-4 of a
+# tensor's max off it. ``tools/torch_deeplab_grad_probe.py`` finds why:
+# float32 rounding in the backbone's convolutions and BatchNorms, most of
+# it entering in the stem and the first stage and carried down some 40
+# layers; the worst tensors are the DSPP's pooled branch (its BatchNorm
+# normalises over the batch alone), its projection and the last backbone
+# BatchNorm. Float64 BatchNorm statistics do not remove it, nor a float64
+# pooled branch; float64 convolutions and BatchNorms together take it to
+# about 1e-5 at batch 8. Each tensor of the card's step is held to the
+# larger of the U-Net's allowance and DL_GRAD_CPU_FACTOR times the CPU
+# float32 step's own error.
+DL_GRAD_CPU_FACTOR = 2.0
+
+
+def build_deeplab(seed: int, h: int = H, w: int = W, device="cuda"):
+    from oct_image_segmentation_models_torch.models import get_model_class
+
+    container = get_model_class("deeplabv3plus")(
+        input_channels=3, num_classes=NUM_CLASSES, image_height=h, image_width=w
+    )
+    module = container.build_model(
+        generator=torch.Generator().manual_seed(seed), device=device
+    )
+    return container, module
+
+
+def rgb(images: np.ndarray) -> np.ndarray:
+    """Gray ``(..., 1)`` B-scans repeated over 3 channels."""
+    return np.repeat(images, 3, axis=-1)
+
+
+@contextlib.contextmanager
+def deeplab_functional(recorder):
+    """``models/resnet.py`` and the blocks of ``models/unet.py`` call
+    ``recorder`` for their ``F.relu`` and ``F.max_pool2d`` inside."""
+    from oct_image_segmentation_models_torch.models import resnet, unet
+
+    saved = resnet.F, unet.F
+    resnet.F = unet.F = recorder
+    try:
+        yield recorder
+    finally:
+        resnet.F, unet.F = saved
+
+
+def deeplab_forward_card_vs_cpu(rng, seed: int) -> dict:
+    """The eval-mode forward, plain and BN-folded, on the card against the
+    CPU at 2 x 128x256 (both float32)."""
+    from oct_image_segmentation_models_torch._device import float32_precision
+    from oct_image_segmentation_models_torch.models.deeplabv3plus import fold_batchnorm
+
+    container, card = build_deeplab(seed, DL_FWD_H, DL_FWD_W)
+    cpu = copy.deepcopy(card).cpu()
+    images = rgb(layered_bscans(rng, 2, DL_FWD_H, DL_FWD_W, NUM_CLASSES))
+    x = torch.from_numpy(container.get_preprocess_input_fn()(images))
+    out = {}
+    for name, (a, b) in {
+        "plain": (card, cpu), "folded": (fold_batchnorm(card), fold_batchnorm(cpu)),
+    }.items():
+        with torch.inference_mode(), float32_precision():
+            p_card = a(x.cuda()).cpu()
+            p_cpu = b(x)
+        err = float((p_card - p_cpu).abs().max())
+        agree = float((p_card.argmax(-1) == p_cpu.argmax(-1)).float().mean())
+        print(
+            f"deeplab {name} forward card vs CPU (2 x {DL_FWD_H}x{DL_FWD_W}): max |dp| "
+            f"{err:.3e} (tolerance {PROB_ATOL:g}), argmax agreement {agree:.6f}"
+        )
+        if not torch.isfinite(p_card).all() or err > PROB_ATOL or agree < MIN_AGREEMENT:
+            raise AssertionError(f"deeplab {name} card forward off the CPU's: {err}, {agree}")
+        out[f"{name}_prob_max_abs_err"], out[f"{name}_argmax_agreement"] = err, agree
+    return out
+
+
+def deeplab_serving(container, module, volume: np.ndarray, label: str) -> dict:
+    """The folded ``make_fused_pipeline`` and ``VolumeSegmenter`` on the
+    3-channel ``volume`` in both tie modes through B1: rows against the
+    plain min-path, no B2 or B3 launch."""
+    from oct_image_segmentation_models_torch.common.model_io import LoadedModel
+    from oct_image_segmentation_models_torch.models.deeplabv3plus import fold_batchnorm
+    from oct_image_segmentation_models_torch.ops.inference import make_fused_pipeline
+    from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
+
+    config = container.get_config()
+    loaded = LoadedModel("deeplabv3plus", module, config)
+    folded = fold_batchnorm(module)
+    pipes = {
+        tie: make_fused_pipeline(
+            folded, container.get_preprocess_input_fn(), minpath_tie_parity=tie,
+            return_maps=False, device="cuda",
+        )
+        for tie in ("fast", "exact")
+    }
+    segs = {
+        tie: VolumeSegmenter(
+            loaded, config, batch_size=BATCH, minpath_tie_parity=tie, device="cuda"
+        )
+        for tie in ("fast", "exact")
+    }
+    if any(seg.kind != "folded" for seg in segs.values()):
+        raise AssertionError(f"VolumeSegmenter chose {segs['fast'].kind} for the DeepLab")
+    reset_counts()
+    results = {}
+    for tie in ("fast", "exact"):
+        results[("pipeline", tie)] = run_volume(pipes[tie], volume)
+        results[("segmenter", tie)] = segs[tie].segment_volume(volume)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(
+        f"deeplab serving ({label}): {len(volume)} B-scans through the folded pipeline "
+        f"and VolumeSegmenter, both tie modes, launches {counts}, variants {read_variants()}"
+    )
+    if counts["minpath_dp"] < 1:
+        raise AssertionError("deeplab serving never launched B1")
+    if counts["minpath_dp_s2d"] or counts["s2d_enc_pair"]:
+        raise AssertionError(f"deeplab serving launched other kernels: {counts}")
+    for (path, tie), (labels, rows) in results.items():
+        check_rows(tie, labels, rows)
+        if not np.array_equal(labels, results[("pipeline", tie)][0]):
+            raise AssertionError(f"VolumeSegmenter labels differ from the pipeline's ({tie})")
+    return {
+        "launches": counts["minpath_dp"],
+        "pipes": pipes,
+        "folded": folded,
+        "preprocess": container.get_preprocess_input_fn(),
+        "labels": results[("pipeline", "fast")][0],
+    }
+
+
+def deeplab_serving_times(serving: dict, volume: np.ndarray) -> dict:
+    from oct_image_segmentation_models_torch._device import float32_precision
+
+    batch = torch.from_numpy(volume[:BATCH]).pin_memory()
+    out = {}
+    for tie, pipe in serving["pipes"].items():
+        ms = time_cuda(lambda: pipe(batch), iters=3)
+        out[f"pipeline_{tie}_ms"] = ms
+        out[f"pipeline_{tie}_bscans_per_s"] = BATCH / ms * 1e3
+    preprocess = serving["preprocess"]
+    folded = serving["folded"]
+    with torch.inference_mode(), float32_precision():
+        x = preprocess(batch.cuda())
+        out["forward_gflop"] = forward_flop(folded, x) / 1e9
+        out["forward_ms"] = time_cuda(lambda: folded(x), iters=3)
+    out["forward_tflops"] = out["forward_gflop"] / out["forward_ms"]
+    out["forward_bound_ms"] = out["forward_gflop"] * 1e9 / FP32_FLOPS_PER_S * 1e3
+    out["pipeline_fast_tflops"] = out["forward_gflop"] / out["pipeline_fast_ms"]
+    out.update(profile_pipeline(serving["pipes"]["fast"], batch))
+    return out
+
+
+def deeplab_step_card_vs_cpu(rng, seed: int) -> dict:
+    """One DeepLab train step at batch 2 of 64x128 on the card and on the
+    CPU in float32 from the same weights and batch; the gradients of each
+    against the CPU float64 step that replays that step's ReLU gates and
+    max-pool picks."""
+    container, card = build_deeplab(seed + 2, DL_CHECK_H, DL_CHECK_W)
+    initial = copy.deepcopy(card).cpu()
+    images, labels = layered_dataset(rng, DL_CHECK_BATCH, DL_CHECK_H, DL_CHECK_W, NUM_CLASSES)
+    x = torch.from_numpy(container.get_preprocess_input_fn()(rgb(images)))
+    y = torch.from_numpy(labels)
+
+    def run(module, recorder):
+        dev = next(module.parameters()).device
+        state, step, _ = _train_objects(module, seed)
+        with deeplab_functional(recorder):
+            _, loss, metric = step(state, x.to(dev), y.to(dev), None)
+        grads = {k: p.grad.detach().cpu().double() for k, p in module.named_parameters()}
+        stats = {k: v.detach().cpu() for k, v in module.state_dict().items() if "running" in k}
+        return float(loss), float(metric), grads, stats
+
+    rec = {"card": GateRecorder(), "cpu": GateRecorder(), "cpu64": GateRecorder()}
+    l_card, m_card, g_card, s_card = run(card, rec["card"])
+    l_cpu, m_cpu, g_cpu, s_cpu = run(copy.deepcopy(initial), rec["cpu"])
+    g64 = run(copy.deepcopy(initial).double(), rec["cpu64"])[2]
+    g64_card = run(copy.deepcopy(initial).double(), GateRecorder(replay=rec["card"]))[2]
+    g64_cpu = run(copy.deepcopy(initial).double(), GateRecorder(replay=rec["cpu"]))[2]
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    gmax = max(float(g.abs().max()) for g in g64.values())
+
+    def rel(got, want):
+        return float((got - want).abs().max()) / float(want.abs().max())
+
+    zero_grad, rows = 0.0, []
+    for k, g in g64.items():
+        if k.endswith("conv.bias"):  # every conv bias but the head's feeds a BatchNorm
+            zero_grad = max(zero_grad, float(g_cpu[k].abs().max()), float(g_card[k].abs().max()))
+            continue
+        card_rel, cpu_rel = rel(g_card[k], g64_card[k]), rel(g_cpu[k], g64_cpu[k])
+        allowed = max(STEP_GRAD_RTOL, DL_GRAD_CPU_FACTOR * cpu_rel)
+        rows.append((card_rel / allowed, card_rel, cpu_rel, rel(g_card[k], g), rel(g_cpu[k], g), k))
+    rows.sort(reverse=True)
+    worst = rows[0][0]
+    card_max, cpu_max = max(r[1] for r in rows), max(r[2] for r in rows)
+    plain_card, plain_cpu = max(r[3] for r in rows), max(r[4] for r in rows)
+    flips_card = gate_flips(rec["card"], rec["cpu64"])
+    flips_cpu = gate_flips(rec["cpu"], rec["cpu64"])
+    # the stem's running statistics reach ~1e2 (preprocessed inputs of
+    # +-130): held relative to 1 + |value|
+    stat_err = max(
+        float(((s_card[k] - s_cpu[k]).abs() / (1 + s_cpu[k].abs())).max()) for k in s_cpu
+    )
+    print(
+        f"deeplab train step card vs CPU (batch {DL_CHECK_BATCH} x {DL_CHECK_H}x{DL_CHECK_W}, "
+        f"float32): loss {l_card:.6f} / {l_cpu:.6f} (rel {loss_err:.2e}, tolerance "
+        f"{STEP_LOSS_RTOL:g}), metric {m_card:.6f} / {m_cpu:.6f}, BN statistics max |diff| / "
+        f"(1 + |value|) {stat_err:.2e} (tolerance {STEP_STAT_ATOL:g}), pre-BN conv bias "
+        f"gradients {zero_grad / gmax:.2e} of max |g| (bound {ZERO_GRAD_SHARE:g})"
+    )
+    print(
+        f"  gradients against the float64 step with the same ReLU gates and max-pool picks, "
+        f"worst tensor's max |d| / max |g|: card {card_max:.2e}, CPU float32 {cpu_max:.2e}; "
+        f"card over its allowance (max of {STEP_GRAD_RTOL:g} and {DL_GRAD_CPU_FACTOR:g} x the "
+        f"CPU's): {worst:.3f} (must be <= 1)"
+    )
+    print(
+        f"  against the plain float64 step: worst tensor card {plain_card:.2e}, CPU float32 "
+        f"{plain_cpu:.2e} of its max; (ReLU gates, max-pool picks) that differ from float64's: "
+        f"card {flips_card}, CPU float32 {flips_cpu}"
+    )
+    for over, card_rel, cpu_rel, _, _, k in rows[:3]:
+        print(f"  gradient {k}: card {card_rel:.2e}, CPU float32 {cpu_rel:.2e} of max |g|")
+    if not (np.isfinite(l_card) and loss_err <= STEP_LOSS_RTOL):
+        raise AssertionError(f"deeplab card train-step loss {l_card} off the CPU's {l_cpu}")
+    if worst > 1 or zero_grad > ZERO_GRAD_SHARE * gmax:
+        raise AssertionError(
+            f"deeplab gradients off float64 with the same gates: {worst} of the allowance "
+            f"({rows[0][-1]}); zero share {zero_grad / gmax}"
+        )
+    if stat_err > STEP_STAT_ATOL:
+        raise AssertionError(f"deeplab card BN statistics off the CPU's by {stat_err}")
+    return {
+        "loss_rel_err": loss_err,
+        "grad_card_worst_rel": card_max,
+        "grad_cpu_worst_rel": cpu_max,
+        "grad_card_worst_of_allowance": worst,
+        "grad_worst_tensor": rows[0][-1],
+        "grad_card_worst_rel_plain_float64": plain_card,
+        "grad_cpu_worst_rel_plain_float64": plain_cpu,
+        "gate_flips_card": flips_card,
+        "gate_flips_cpu": flips_cpu,
+        "zero_grad_share": zero_grad / gmax,
+        "bn_stat_rel_err": stat_err,
+    }
+
+
+def deeplab_train(rng, seed: int) -> dict:
+    """``DL_TRAIN_STEPS`` train steps at batch 8 of 512x1024 from the
+    port's DataGenerator (focal + Dice, Adam 1e-3, float32), an eval step,
+    one BNRefresher pass, and the trained weights served through B1."""
+    from oct_image_segmentation_models_torch.common.data_generator import DataGenerator
+    from oct_image_segmentation_models_torch.ops.bn_refresh import BNRefresher
+    from oct_image_segmentation_models_torch.parallel.train_step import load_batch_stats
+
+    container, module = build_deeplab(seed + 3)
+    preprocess = container.get_preprocess_input_fn()
+    train_x, train_y = layered_dataset(rng, 2 * BATCH, H, W, NUM_CLASSES)
+    train_x = rgb(train_x)
+    gen = DataGenerator(train_x, train_y, BATCH, [], "none", (), False, preprocess, seed=seed)
+
+    def upload(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().cuda(non_blocking=True)
+
+    def batches():
+        while True:
+            for bx, by in gen:
+                yield upload(bx), upload(by)
+            gen.on_epoch_end()
+
+    stream = batches()
+    state, step, evaluate = _train_objects(module, seed)
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    out, losses = {}, []
+    fixed = [next(stream) for _ in range(DL_TRAIN_WARMUP + DL_TRAIN_TIMED)]
+    for bx, by in fixed[:DL_TRAIN_WARMUP]:
+        losses.append(step(state, bx, by, generator)[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    phases = ("forward", "backward", "optimizer")
+    splits = {name: [] for name in ("step",) + phases}
+    for bx, by in fixed[DL_TRAIN_WARMUP:]:
+        ev = {name: torch.cuda.Event(enable_timing=True) for name in ("start",) + phases}
+        ev["start"].record()
+        losses.append(step(state, bx, by, generator, on_phase=lambda n: ev[n].record())[1])
+        ev["optimizer"].synchronize()
+        for a, b in zip(("start",) + phases, phases):
+            splits[b].append(ev[a].elapsed_time(ev[b]))
+        splits["step"].append(ev["start"].elapsed_time(ev["optimizer"]))
+    for name, values in splits.items():
+        out[f"{name}_ms"] = statistics.median(values)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["bscans_per_s"] = BATCH / out["step_ms"] * 1e3
+    flop = train_flop(step, state, *fixed[0], generator)
+    out["gflop_per_step"] = flop / 1e9
+    out["tflops"] = flop / 1e9 / out["step_ms"]
+    out["bound_ms"] = flop / FP32_FLOPS_PER_S * 1e3
+    done = DL_TRAIN_WARMUP + DL_TRAIN_TIMED + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DL_TRAIN_STEPS - done):
+        bx, by = next(stream)
+        losses.append(step(state, bx, by, generator)[1])
+    torch.cuda.synchronize()
+    out["loop_s"] = time.perf_counter() - t0
+    out["loop_bscans_per_s"] = BATCH * (DL_TRAIN_STEPS - done) / out["loop_s"]
+    losses = torch.stack(losses).cpu().numpy()
+    first, last = float(losses[0]), float(losses[-1])
+    out["losses_first_last"], out["steps"] = (first, last), int(state.step)
+
+    vx, vy = fixed[0]
+    val_loss, val_metric = evaluate(state, vx, vy)
+    out["eval_ms"] = time_cuda(lambda: evaluate(state, vx, vy), iters=2, reps=3)
+    out["val_loss"], out["val_metric"] = float(val_loss), float(val_metric)
+    stat_batches = [upload(preprocess(train_x[i:i + BATCH])) for i in range(0, len(train_x), BATCH)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    precise = BNRefresher(module)(
+        None, stat_batches, generator=torch.Generator(device="cuda").manual_seed(seed)
+    )
+    torch.cuda.synchronize()
+    out["bn_refresh_ms"] = (time.perf_counter() - t0) * 1e3
+    print(
+        f"deeplab train: {out['steps']} steps at batch {BATCH} x {H}x{W}, loss {first:.4f} -> "
+        f"{last:.4f}; eval loss {out['val_loss']:.4f}, dice_coef_macro {out['val_metric']:.4f}"
+    )
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"deeplab training loss did not fall: {first} -> {last}")
+    bad = [k for k, v in precise.items() if not torch.isfinite(v).all()]
+    bad += [k for k, v in precise.items() if k.endswith("running_var") and not (v > 0).all()]
+    if bad:
+        raise AssertionError(f"deeplab precise BN statistics not finite or var <= 0: {bad[:4]}")
+    load_batch_stats(module, precise)
+    module.eval()
+    test_x, test_y = layered_dataset(rng, BATCH, H, W, NUM_CLASSES)
+    served = deeplab_serving(container, module, rgb(test_x), "trained weights")
+    truth = test_y[..., 0]
+    out["served_dice"] = float(np.mean([
+        2 * ((served["labels"] == c) & (truth == c)).sum()
+        / ((served["labels"] == c).sum() + (truth == c).sum())
+        for c in range(NUM_CLASSES)
+    ]))
+    out["served_launches"] = served["launches"]
+    print(f"deeplab trained weights on {BATCH} held-out B-scans: dice_coef_macro {out['served_dice']:.4f}")
+    return out
+
+
+def phase_deeplab_path(rng, seed: int, volume: np.ndarray) -> dict:
+    """DeepLabV3+ at full width (ResNet50 to conv4, 3-channel 512x1024
+    B-scans, 4 classes, batch 8, seeded random weights): forward card vs
+    CPU, serving through B1, the train step card vs CPU, training and the
+    trained weights served through B1."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"forward_check": deeplab_forward_card_vs_cpu(rng, seed)}
+    container, module = build_deeplab(seed)
+    volume3 = rgb(volume)
+    serving = deeplab_serving(container, module, volume3, "random weights")
+    out["times"] = deeplab_serving_times(serving, volume3)
+    out["launches"] = serving["launches"]
+    del serving, module
+    torch.cuda.empty_cache()
+    out["step_check"] = deeplab_step_card_vs_cpu(rng, seed)
+    out["train"] = deeplab_train(rng, seed)
+    out["launches"] += out["train"]["served_launches"]
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 # --- the data-parallel path ----------------------------------------------
 
 DP_STEPS = 3  # steps of the world-of-one run held against the one-device step
@@ -1906,6 +2300,7 @@ def main(argv=None) -> int:
     times = phase_times(model, s2d, folded, fused, parity_pair["flagship_args"])
     times.update(predict_path_times(predict, volume))
     train = phase_train_path(rng, args.seed)
+    deeplab = phase_deeplab_path(rng, args.seed, volume)
     dp = phase_dp_path(rng, model, volume, args.seed)
 
     card = env["card"]
@@ -2011,6 +2406,39 @@ def main(argv=None) -> int:
         f"eval step {train['eval_ms']:.3f} ms/batch; one BNRefresher pass over "
         f"{TRAIN_IMAGES} B-scans {train['bn_refresh_ms']:.3f} ms"
     )
+    dt, dtr, dck = deeplab["times"], deeplab["train"], deeplab["step_check"]
+    for tie in ("fast", "exact"):
+        print(
+            f"[{card}] deeplab folded pipeline batch {BATCH} x {H}x{W}x3, {tie} ties: "
+            f"{dt[f'pipeline_{tie}_ms']:.3f} ms/batch, "
+            f"{dt[f'pipeline_{tie}_bscans_per_s']:.1f} B-scans/s"
+        )
+    print(
+        f"[{card}] deeplab folded forward (batch {BATCH}): {dt['forward_ms']:.3f} ms, "
+        f"{dt['forward_gflop']:.1f} GFLOP, {dt['forward_tflops']:.2f} TFLOP/s (float32 bound "
+        f"{dt['forward_bound_ms']:.3f} ms); the pipeline {dt['pipeline_fast_tflops']:.2f} "
+        f"TFLOP/s; profiled wall {dt['profiled_wall_ms_per_batch']:.3f} ms/batch, device "
+        f"{dt['device_ms_per_batch']:.3f} ms/batch, busy share "
+        + ("not measured" if dt["device_busy_share"] is None else f"{dt['device_busy_share']:.4f}")
+    )
+    for name, ms in dt["top_kernels_ms_per_batch"]:
+        print(f"  {ms:9.3f} ms/batch  {name[:100]}")
+    print(
+        f"[{card}] deeplab train step (batch {BATCH} x {H}x{W}x3, float32, TF32 off, Adam, "
+        f"focal+Dice): {dtr['step_ms']:.3f} ms/step = {dtr['bscans_per_s']:.2f} B-scans/s; "
+        f"{dtr['gflop_per_step']:.1f} GFLOP/step, {dtr['tflops']:.2f} TFLOP/s (float32 bound "
+        f"{dtr['bound_ms']:.3f} ms); split forward with loss and metric "
+        f"{dtr['forward_ms']:.3f} ms, backward {dtr['backward_ms']:.3f} ms, optimizer "
+        f"{dtr['optimizer_ms']:.3f} ms; peak memory {dtr['peak_mib']:.1f} MiB; eval step "
+        f"{dtr['eval_ms']:.3f} ms; BNRefresher over {2 * BATCH} B-scans "
+        f"{dtr['bn_refresh_ms']:.3f} ms; loop {dtr['loop_bscans_per_s']:.2f} B-scans/s"
+    )
+    print(
+        f"[{card}] deeplab gradients vs the replaying float64 step: card "
+        f"{dck['grad_card_worst_rel']:.2e}, CPU float32 {dck['grad_cpu_worst_rel']:.2e} of "
+        f"the worst tensor's max ({dck['grad_worst_tensor']}); the phase "
+        f"{deeplab['phase_s']:.1f} s"
+    )
     minpath_src = "oct_image_segmentation_models_torch/csrc/minpath.cu"
     tpu_minpath = "oct_image_segmentation_models_tpu/ops/minpath_pallas.py"
     kernels = []
@@ -2018,7 +2446,7 @@ def main(argv=None) -> int:
         (
             "minpath_dp",
             folded["launches"] + predict["launches"] + train["launches"]["minpath_dp"]
-            + sum(dp["two_ranks"]["b1_launches_per_rank"]),
+            + deeplab["launches"] + sum(dp["two_ranks"]["b1_launches_per_rank"]),
             parity["max_abs_err"],
             "b1",
             f"{tpu_minpath}:487",
@@ -2050,6 +2478,7 @@ def main(argv=None) -> int:
             line["launches_predict_path"] = predict["launches"]
             line["predict_path_store_launches"] = predict["store_launches"]
             line["launches_train_path"] = train["launches"]["minpath_dp"]
+            line["launches_deeplab_path"] = deeplab["launches"]
             line["launches_dp_path_per_rank"] = dp["two_ranks"]["b1_launches_per_rank"]
         if key == "b2":
             line["launches_s2d_path"] = s2d["launches"]
@@ -2091,6 +2520,7 @@ def main(argv=None) -> int:
             },
             "times": times,
             "train_path": train,
+            "deeplab_path": deeplab,
             "dp_path": dp,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start,

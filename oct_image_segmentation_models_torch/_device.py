@@ -1,9 +1,11 @@
-"""Device resolution and float32 precision for the port's entry points."""
+"""Device resolution, float32 precision and per-device constants for the
+port's entry points."""
 
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -36,3 +38,20 @@ def float32_precision():
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_matmul
+
+
+class PerDevice:
+    """A host array as a float32 tensor, copied to each device once, so
+    that a step that uses it never waits for the host after the first."""
+
+    def __init__(self, array):
+        self._array = np.asarray(array, np.float32)
+        self._tensors = {}
+
+    def __len__(self) -> int:
+        return len(self._array)
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        if device not in self._tensors:
+            self._tensors[device] = torch.from_numpy(self._array).to(device)
+        return self._tensors[device]

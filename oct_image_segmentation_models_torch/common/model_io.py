@@ -1,9 +1,9 @@
 """Checkpoint I/O and the weights bridge from the JAX package.
 
-- :func:`state_dict_from_flax` turns the JAX package's U-Net ``variables``
-  (nested dicts of numpy arrays, ``params`` and ``batch_stats``; plain or
-  BN-folded) into a ``state_dict`` of the port's :class:`UNetModule`;
-  :func:`flax_from_state_dict` is its inverse.
+- :func:`state_dict_from_flax` turns the JAX package's U-Net or
+  DeepLabV3+ ``variables`` (nested dicts of numpy arrays, ``params`` and
+  ``batch_stats``; plain or BN-folded) into a ``state_dict`` of the port's
+  module; :func:`flax_from_state_dict` is its inverse.
 - :func:`save_model` writes a ``state_dict`` as the JAX package's native
   HDF5 checkpoint, which the JAX package's ``load_model`` reads.
 - :func:`read_checkpoint` reads the JAX package's native HDF5 checkpoint
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import json
 import logging as log
+import re
 from pathlib import Path
 
 import numpy as np
@@ -70,81 +71,103 @@ def read_checkpoint(path) -> tuple:
     return model_name, model_config, variables
 
 
-def state_dict_from_flax(variables_np: dict) -> dict:
-    """Flax U-Net ``variables`` -> the port's ``UNetModule`` state_dict.
+_BLOCK = re.compile(r"(_?)ConvBlock_(\d+)")
+# Flax module name -> the port's, and back (``ConvBlock_i`` <-> ``blocks.i``
+# apart). ``Conv_0`` at the top of the tree is the head.
+_TO_TORCH = {"Conv_0": "conv", "BatchNorm_0": "bn", "DSPP_0": "dspp"}
+_TO_FLAX = {"head": "Conv_0", "conv": "Conv_0", "bn": "BatchNorm_0", "dspp": "DSPP_0"}
+# BatchNorm leaves: (Flax collection, Flax leaf) <-> the port's leaf.
+_BN_LEAVES = {
+    ("params", "scale"): "weight",
+    ("params", "bias"): "bias",
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
 
-    ``ConvBlock_i`` maps to ``blocks.{i}``; conv kernels go from HWIO to
-    OIHW; BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var``
-    map to ``bn.weight``/``bn.bias``/``bn.running_mean``/``bn.running_var``.
-    A folded tree (no BatchNorm entries) gives a state_dict for
-    ``UNetModule(use_bn=False)``.
+
+def _torch_prefix(path: tuple) -> str:
+    parts = []
+    for part in path:
+        block = _BLOCK.fullmatch(part)
+        if block:
+            parts += ["blocks", block.group(2)]
+        elif path == ("Conv_0",):
+            parts.append("head")
+        else:
+            parts.append(_TO_TORCH.get(part, part))
+    return ".".join(parts)
+
+
+def _is_bn(module_name: str) -> bool:
+    return module_name == "bn" or module_name.endswith("_bn")
+
+
+def state_dict_from_flax(variables_np: dict) -> dict:
+    """Flax ``variables`` of the JAX package's U-Net or DeepLabV3+ -> the
+    port's module state_dict.
+
+    Module names map one for one: ``ConvBlock_i`` (U-Net) and
+    ``_ConvBlock_i`` (DeepLabV3+) -> ``blocks.i``, ``Conv_0`` -> ``conv``
+    (``head`` at the top of the tree), ``BatchNorm_0`` -> ``bn``, ``DSPP_0``
+    -> ``dspp``; the backbone's Keras names stay. Conv kernels go from HWIO
+    to OIHW; BatchNorm ``scale``/``bias`` and ``batch_stats``
+    ``mean``/``var`` map to ``weight``/``bias``/``running_mean``/
+    ``running_var``. A folded tree (no BatchNorm entries) gives a
+    state_dict for the module built with ``use_bn=False``.
     """
-    params = variables_np["params"]
-    stats = variables_np.get("batch_stats", {})
+    out = {}
 
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
-    def kernel(a):  # HWIO -> OIHW
-        return t(a).permute(3, 2, 0, 1).contiguous()
+    def walk(node: dict, stats: dict, path: tuple) -> None:
+        prefix = _torch_prefix(path)
+        if "kernel" in node:
+            out[f"{prefix}.weight"] = t(node["kernel"]).permute(3, 2, 0, 1).contiguous()
+            if "bias" in node:
+                out[f"{prefix}.bias"] = t(node["bias"])
+        elif "scale" in node:
+            for (collection, leaf), name in _BN_LEAVES.items():
+                out[f"{prefix}.{name}"] = t((node if collection == "params" else stats)[leaf])
+        else:
+            for name, child in node.items():
+                walk(child, stats.get(name, {}), path + (name,))
 
-    out = {}
-    for name, layer in params.items():
-        if name == "Conv_0":
-            out["head.weight"] = kernel(layer["kernel"])
-            out["head.bias"] = t(layer["bias"])
-            continue
-        if not name.startswith("ConvBlock_"):
-            raise ValueError(f"unexpected U-Net parameter group {name!r}")
-        prefix = f"blocks.{int(name[len('ConvBlock_'):])}"
-        out[f"{prefix}.conv.weight"] = kernel(layer["Conv_0"]["kernel"])
-        out[f"{prefix}.conv.bias"] = t(layer["Conv_0"]["bias"])
-        bn = layer.get("BatchNorm_0")
-        if bn is not None:
-            bstats = stats[name]["BatchNorm_0"]
-            out[f"{prefix}.bn.weight"] = t(bn["scale"])
-            out[f"{prefix}.bn.bias"] = t(bn["bias"])
-            out[f"{prefix}.bn.running_mean"] = t(bstats["mean"])
-            out[f"{prefix}.bn.running_var"] = t(bstats["var"])
+    walk(variables_np["params"], variables_np.get("batch_stats", {}), ())
     return out
 
 
 def flax_from_state_dict(state_dict: dict) -> dict:
-    """The port's ``UNetModule`` state_dict -> Flax U-Net ``variables``
+    """The port's U-Net or DeepLabV3+ state_dict -> Flax ``variables``
     (nested dicts of float32 numpy arrays), the inverse of
-    :func:`state_dict_from_flax`: ``blocks.{i}`` -> ``ConvBlock_i``, OIHW ->
-    HWIO, ``bn.weight``/``bn.bias`` -> ``BatchNorm_0`` ``scale``/``bias``
-    and the running statistics -> ``batch_stats`` ``mean``/``var``. A
-    folded state_dict gives ``{"params": ...}`` alone."""
-    params, stats = {}, {}
-    bn_names = {
-        "weight": ("params", "scale"),
-        "bias": ("params", "bias"),
-        "running_mean": ("batch_stats", "mean"),
-        "running_var": ("batch_stats", "var"),
-    }
+    :func:`state_dict_from_flax`. A DeepLabV3+ (``resnet50.`` entries) gets
+    its ``_ConvBlock_i`` names. A folded state_dict gives ``{"params":
+    ...}`` alone."""
+    deeplab = any(key.startswith("resnet50.") for key in state_dict)
+    block = "_ConvBlock_" if deeplab else "ConvBlock_"
+    variables = {}
+    bn_leaves = {name: key for key, name in _BN_LEAVES.items()}
     for key, value in state_dict.items():
         a = np.asarray(torch.as_tensor(value).detach().cpu(), dtype=np.float32)
-        parts = key.split(".")
-        if parts[0] == "head":
-            conv = params.setdefault("Conv_0", {})
-        elif parts[0] == "blocks":
-            name = f"ConvBlock_{int(parts[1])}"
-            if parts[2] == "bn":
-                collection, leaf = bn_names[parts[3]]
-                tree = params if collection == "params" else stats
-                tree.setdefault(name, {}).setdefault("BatchNorm_0", {})[leaf] = a
+        *modules, leaf = key.split(".")
+        path = []
+        for i, part in enumerate(modules):
+            if part.isdigit():
                 continue
-            conv = params.setdefault(name, {}).setdefault("Conv_0", {})
+            if part == "blocks":
+                path.append(f"{block}{int(modules[i + 1])}")
+            else:
+                path.append(_TO_FLAX.get(part, part))
+        if _is_bn(modules[-1]):
+            collection, leaf = bn_leaves[leaf]
         else:
-            raise ValueError(f"unexpected U-Net state_dict entry {key!r}")
-        if parts[-1] == "weight":
-            conv["kernel"] = np.ascontiguousarray(a.transpose(2, 3, 1, 0))  # OIHW -> HWIO
-        else:
-            conv["bias"] = a
-    variables = {"params": params}
-    if stats:
-        variables["batch_stats"] = stats
+            collection = "params"
+            if leaf == "weight":
+                a, leaf = np.ascontiguousarray(a.transpose(2, 3, 1, 0)), "kernel"
+        node = variables.setdefault(collection, {})
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = a
     return variables
 
 
@@ -181,7 +204,7 @@ def save_model(path, model_name: str, model_config: dict, state_dict: dict) -> N
 
 def is_folded(state_dict: dict) -> bool:
     """True when ``state_dict`` has no BatchNorm entries."""
-    return not any(".bn." in key for key in state_dict)
+    return not any(key.endswith(".running_var") for key in state_dict)
 
 
 class LoadedModel:

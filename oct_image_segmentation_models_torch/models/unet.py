@@ -69,11 +69,14 @@ def dropout_mask(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm with the Flax formula and eps 1e-3 (see the module
-    docstring for the batch-statistics mode)."""
+    """BatchNorm with the Flax formula, eps 1e-3 unless ``eps`` says
+    otherwise (see the module docstring for the batch-statistics mode).
+    The one BatchNorm of the port: DeepLabV3+'s backbone uses it with the
+    Keras ResNet50's 1.001e-5."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -95,26 +98,36 @@ class BatchNorm(nn.Module):
                 )
         else:
             mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean[:, None, None]) * mul[:, None, None]
         return y + self.bias[:, None, None]
 
 
 class ConvBlock(nn.Module):
-    """Conv -> BatchNorm -> ReLU. ``use_bn=False`` is the BN-folded
-    inference variant (see :func:`fold_batchnorm_variables`)."""
+    """"SAME" Conv -> BatchNorm -> ReLU. ``use_bn=False`` is the BN-folded
+    inference variant (see :func:`fold_batchnorm_variables`). ``dilation``
+    spreads the kernel's taps; ``bias=False`` drops the conv's bias (the
+    folded variant always has one, to carry the folded shift)."""
 
     def __init__(
-        self, in_features: int, features: int, kernel: Sequence[int], use_bn: bool
+        self,
+        in_features: int,
+        features: int,
+        kernel: Sequence[int],
+        use_bn: bool,
+        dilation: int = 1,
+        bias: bool = True,
     ):
         super().__init__()
-        self.pads = _same_pads(kernel)
+        self.pads = _same_pads([(k - 1) * dilation + 1 for k in kernel])
         symmetric = self.pads[0] == self.pads[1] and self.pads[2] == self.pads[3]
         self.conv = nn.Conv2d(
             in_features,
             features,
             tuple(kernel),
             padding=(self.pads[2], self.pads[0]) if symmetric else 0,
+            dilation=dilation,
+            bias=bias or not use_bn,
         )
         self.needs_pad = not symmetric
         self.bn = BatchNorm(features) if use_bn else None
@@ -310,39 +323,52 @@ class UNet(BaseModel):
         return module.to(device)
 
 
-def fold_batchnorm_variables(state_dict: dict) -> dict:
-    """Fold inference BatchNorm into the preceding conv weights.
+def fold_conv_bn(state_dict: dict, conv: str, bn: str, eps: float) -> tuple:
+    """``(kernel', bias')`` of the conv ``conv`` followed by the eval-mode
+    BatchNorm ``bn`` (state_dict prefixes): ``kernel' = kernel *
+    scale/sqrt(var+eps)`` per output channel and ``bias' = (bias - mean) *
+    scale/sqrt(var+eps) + bn_bias``, a missing conv bias counting as 0, in
+    the float32 operations of the JAX package's folds."""
+    mean = state_dict[f"{bn}.running_mean"]
+    var = state_dict[f"{bn}.running_var"]
+    # torch's float32 CPU sqrt is not always correctly rounded; the
+    # float64 root rounded to float32 is, as JAX's is.
+    root = torch.sqrt((var + eps).to(torch.float64)).to(torch.float32)
+    factor = state_dict[f"{bn}.weight"] / root
+    bias = state_dict.get(f"{conv}.bias", 0.0)
+    kernel = state_dict[f"{conv}.weight"] * factor[:, None, None, None]
+    return kernel, (bias - mean) * factor + state_dict[f"{bn}.bias"]
 
-    ``kernel' = kernel * scale/sqrt(var+eps)`` per output channel and
-    ``bias' = (bias - mean) * scale/sqrt(var+eps) + bn_bias``, in the same
-    float32 operations as the JAX ``fold_batchnorm_variables``. Takes a
-    :class:`UNetModule` ``state_dict`` and returns one for
-    ``UNetModule(use_bn=False)``.
+
+def fold_batchnorm_variables(state_dict: dict, eps: dict = None) -> dict:
+    """Fold inference BatchNorm into the preceding conv weights
+    (:func:`fold_conv_bn`), as the JAX ``fold_batchnorm_variables``.
+    ``eps`` maps each BatchNorm's prefix to its eps; None means every
+    ``{p}.bn`` of a :class:`UNetModule` ``state_dict`` with ``BN_EPS``. The
+    BatchNorm ``{p}bn`` folds into the conv ``{p}conv`` (``{p}.bn`` into
+    ``{p}.conv``, the ResNet50's ``{p}_bn`` into ``{p}_conv``). Returns the
+    ``state_dict`` of the model built with ``use_bn=False``.
     """
-    folded = {k: v for k, v in state_dict.items() if ".bn." not in k}
-    for key in state_dict:
-        if not key.endswith(".bn.weight"):
-            continue
-        block = key[: -len(".bn.weight")]
-        mean = state_dict[f"{block}.bn.running_mean"]
-        var = state_dict[f"{block}.bn.running_var"]
-        # torch's float32 CPU sqrt is not always correctly rounded; the
-        # float64 root rounded to float32 is, as JAX's is.
-        root = torch.sqrt((var + BN_EPS).to(torch.float64)).to(torch.float32)
-        factor = state_dict[f"{block}.bn.weight"] / root
-        kernel = state_dict[f"{block}.conv.weight"]
-        bias = state_dict[f"{block}.conv.bias"]
-        folded[f"{block}.conv.weight"] = kernel * factor[:, None, None, None]
-        folded[f"{block}.conv.bias"] = (
-            (bias - mean) * factor + state_dict[f"{block}.bn.bias"]
+    if eps is None:
+        eps = {k[: -len(".weight")]: BN_EPS for k in state_dict if k.endswith(".bn.weight")}
+    folded = {k: v for k, v in state_dict.items() if k.rsplit(".", 1)[0] not in eps}
+    for bn, bn_eps in eps.items():
+        conv = bn[: -len("bn")] + "conv"
+        folded[f"{conv}.weight"], folded[f"{conv}.bias"] = fold_conv_bn(
+            state_dict, conv, bn, bn_eps
         )
     return folded
 
 
-def fold_batchnorm(module: UNetModule) -> UNetModule:
-    """A BN-folded copy of ``module`` (``use_bn=False``) on its device."""
+def fold_batchnorm(module: nn.Module) -> nn.Module:
+    """A BN-folded copy (``use_bn=False``) of ``module``, a
+    :class:`UNetModule` or a DeepLabV3+, on its device: every
+    :class:`BatchNorm` folds into the conv before it with its own eps
+    (:func:`fold_batchnorm_variables`)."""
     if not module.use_bn:
         return module
-    folded = UNetModule(**module.hparams, use_bn=False)
-    folded.load_state_dict(fold_batchnorm_variables(module.state_dict()))
-    return folded.to(module.head.weight.device)
+    eps = {name: m.eps for name, m in module.named_modules() if isinstance(m, BatchNorm)}
+    folded_state = fold_batchnorm_variables(module.state_dict(), eps)
+    folded = type(module)(**module.hparams, use_bn=False)
+    folded.load_state_dict(folded_state)
+    return folded.to(next(module.parameters()).device)

@@ -10,9 +10,10 @@ Two forwards feed the fused pipeline:
   U-Net): uint8 B-scans -> x/255 -> s2d conv stack -> per-phase softmax
   argmax labels in s2d layout -> s2d boundary maps -> min-path on the s2d
   maps (CUDA kernel ``minpath_delineate_s2d`` on the card) -> uint16 rows;
-- a probability forward (the BN-folded or plain U-Net): x/255 -> softmax
-  -> argmax labels -> per-boundary maps -> min-path on the transposed
-  maps (CUDA kernel ``minpath_delineate``) -> uint16 rows.
+- a probability forward (the BN-folded or plain U-Net or DeepLabV3+):
+  preprocess -> softmax -> argmax labels -> per-boundary maps -> min-path
+  on the transposed maps (CUDA kernel ``minpath_delineate``) -> uint16
+  rows.
 
 The weights live in the modules, so the pipeline is ``fn(images)`` where
 the JAX one is ``fn(variables, images)``. Over a mesh of ranks each rank
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from .._device import float32_precision, resolve_device
-from ..models.unet import UNetModule, fold_batchnorm
+from ..models import deeplabv3plus, unet
 from ..parallel.mesh import all_gather_host
 from . import boundary as boundary_ops
 from . import minpath as minpath_ops
@@ -41,6 +42,7 @@ def select_optimized_forward(
     compute_dtype: str = "float32",
     optimize: bool = True,
     s2d_output: str = "labels_s2d",
+    fold_unet: bool = True,
 ):
     """Pick the inference forward -> ``(forward_module, kind)``, in the JAX
     selection order.
@@ -49,10 +51,11 @@ def select_optimized_forward(
     is an :class:`.s2d_unet.S2DUNet` with output ``s2d_output``: with the
     default ``"labels_s2d"`` pass it to :func:`make_fused_pipeline`'s
     ``labels_apply_fn``; :class:`StagedPipeline` asks for ``"probs"``),
-    ``"folded"`` for another U-Net (BN folded into the convs), and
-    ``"parity"`` without ``optimize`` or for another model (the module as
-    given). Only float32 is ported, so another ``compute_dtype`` raises
-    (the bfloat16 s2d forward is ROADMAP A13)."""
+    ``"folded"`` for a DeepLabV3+, or another U-Net with ``fold_unet`` (BN
+    folded into the convs), and ``"parity"`` without ``optimize`` or for
+    another model (the module as given). Only float32 is ported, so
+    another ``compute_dtype`` raises (the bfloat16 s2d forward is ROADMAP
+    A13)."""
     if compute_dtype != "float32":
         raise ValueError(
             f"compute_dtype={compute_dtype!r}: the PyTorch forward runs "
@@ -62,8 +65,10 @@ def select_optimized_forward(
         s2d_fn, _div = maybe_build_s2d_apply(module, output=s2d_output)
         if s2d_fn is not None:
             return s2d_fn, "s2d"
-        if isinstance(module, UNetModule):
-            return fold_batchnorm(module), "folded"
+        if isinstance(module, deeplabv3plus.DeeplabV3PlusModule) or (
+            fold_unet and isinstance(module, unet.UNetModule)
+        ):
+            return unet.fold_batchnorm(module), "folded"
     return module, "parity"
 
 
@@ -75,10 +80,10 @@ class StagedPipeline:
 
     With ``optimize`` and a U-Net the s2d transform takes, the forward is
     the s2d probability forward for images whose H and W divide its
-    factor; other images, and every image without ``optimize``, go
-    through ``module`` itself. JAX falls back to the module as given too:
-    it folds BatchNorm in this pipeline only for DeepLabV3+, which is not
-    ported (ROADMAP A11). The graph stage runs the min-path on the
+    factor; other images go through ``module`` itself. With ``optimize``
+    a DeepLabV3+ runs BN-folded; another U-Net, and every model without
+    ``optimize``, runs as given, as in JAX, which folds BatchNorm in this
+    pipeline only for DeepLabV3+. The graph stage runs the min-path on the
     transposed image maps, which is the CUDA kernel ``minpath_delineate``
     (B1) on the card.
     """
@@ -97,12 +102,12 @@ class StagedPipeline:
     ):
         self.device = resolve_device(device)
         forward, kind = select_optimized_forward(
-            module, compute_dtype, optimize, s2d_output="probs"
+            module, compute_dtype, optimize, s2d_output="probs", fold_unet=False
         )
-        self.kind = "s2d" if kind == "s2d" else "parity"
+        self.kind = kind
         self._s2d = forward.to(self.device).eval() if kind == "s2d" else None
         self._s2d_div = 2**forward.s2d_levels if kind == "s2d" else 1
-        self._module = module.to(self.device).eval()
+        self._module = (module if kind == "s2d" else forward).to(self.device).eval()
         self._preprocess = preprocess_fn
         self._bg_ilm, self._bg_csi = bg_ilm, bg_csi
         self._max_grad = max_grad

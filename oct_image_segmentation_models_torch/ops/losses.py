@@ -18,7 +18,7 @@ outputs (p == 1.0 exactly) do occur in training.
 
 A loss call copies nothing from the host to the card, so the train step
 never waits for the host: constants are filled on the device and a class
-weight is copied to a device once, by :class:`_PerDevice`.
+weight is copied to a device once, by :class:`PerDevice`.
 
 The JAX package's documented repairs of the reference are kept:
 ``bce_focal_loss`` is mean(BCE) + mean(focal, gamma=2) on the argmax
@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._device import PerDevice
 from .boundary import to_categorical
 
 _EPS_KERAS = 1e-7  # keras.backend.epsilon()
@@ -42,22 +43,6 @@ _EPS_KERAS = 1e-7  # keras.backend.epsilon()
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip(x, lo, hi)`` with its gradient: half at a bound."""
     return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
-
-
-class _PerDevice:
-    """A host array as a float32 tensor, copied to each device once."""
-
-    def __init__(self, array):
-        self._array = np.asarray(array, np.float32)
-        self._tensors = {}
-
-    def __len__(self) -> int:
-        return len(self._array)
-
-    def on(self, device: torch.device) -> torch.Tensor:
-        if device not in self._tensors:
-            self._tensors[device] = torch.from_numpy(self._array).to(device)
-        return self._tensors[device]
 
 
 def _squeeze_labels(y_true: torch.Tensor) -> torch.Tensor:
@@ -125,7 +110,7 @@ def bce_dice_loss(*, num_classes: int, **kwargs):
 def _sparse_focal_map(y_true, y_pred, gamma, class_weight):
     """Per-pixel sparse categorical focal loss
     ``-w[y] * (1 - p_y)^gamma * log(p_y)``, ``class_weight`` a
-    :class:`_PerDevice` or None. An out-of-range label gives an all-zero
+    :class:`PerDevice` or None. An out-of-range label gives an all-zero
     one-hot row, so ``p_y`` sits at the clip floor (or the pixel drops out
     with ``class_weight``), as in JAX."""
     labels = _squeeze_labels(y_true).to(torch.int64)
@@ -147,7 +132,7 @@ def _sparse_focal_map(y_true, y_pred, gamma, class_weight):
 
 def focal_loss(gamma: float = 2, class_weight: Optional[np.ndarray] = None, **kwargs):
     """Sparse categorical focal loss."""
-    class_weight = None if class_weight is None else _PerDevice(class_weight)
+    class_weight = None if class_weight is None else PerDevice(class_weight)
 
     def _focal_loss(y_true, y_pred):
         return torch.mean(_sparse_focal_map(y_true, y_pred, gamma, class_weight))
@@ -168,7 +153,7 @@ def focal_dice_loss(
     labels."""
     dice_factory = dice_loss_macro if dice_macro else dice_loss_micro
     dice_fn = dice_factory(is_y_true_sparse=True, num_classes=num_classes)
-    class_weight = None if class_weight is None else _PerDevice(class_weight)
+    class_weight = None if class_weight is None else PerDevice(class_weight)
 
     def _focal_dice_loss(y_true, y_pred):
         focal = torch.mean(_sparse_focal_map(y_true, y_pred, gamma, class_weight))
@@ -195,7 +180,7 @@ def weighted_categorical_crossentropy(weights):
     """Class-weighted categorical cross-entropy (off-registry).
     Predictions are renormalised across the channel axis and clipped with
     the Keras epsilon before the log."""
-    weights = _PerDevice(weights)
+    weights = PerDevice(weights)
 
     def loss(y_true, y_pred):
         w = weights.on(y_pred.device)

@@ -6,6 +6,8 @@ machine with a card and no JAX they run as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -323,6 +325,74 @@ def test_staged_pipeline_on_the_card_matches_the_cpu(cuda, tie_parity):
     assert torch.equal(rows.cpu(), want_rows)
     assert torch.equal(masks.cpu(), want_masks)
     assert categorical.dtype == torch.float32 and rows.dtype == torch.uint16
+
+
+# The card's float32 forward against the CPU's: sums in another order over
+# the ResNet50's ~50 convs (chip_smoke.py's PROB_ATOL; measured 4.8e-6 at
+# 2 x 128x256).
+DEEPLAB_PROB_ATOL = 1e-4
+
+
+def _deeplab(h, w, seed=5):
+    from oct_image_segmentation_models_torch.models import get_model_class
+
+    from synth import make_layered_sample
+
+    container = get_model_class("deeplabv3plus")(
+        input_channels=3, num_classes=4, image_height=h, image_width=w
+    )
+    module = container.build_model(generator=torch.Generator().manual_seed(seed), device="cpu")
+    rng = np.random.default_rng(seed)
+    gray = np.stack([make_layered_sample(rng, h, w, 4)[0] for _ in range(2)])
+    return container, module, np.repeat(gray[..., None], 3, axis=-1)
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_deeplab_forward_on_the_card_matches_the_cpu(cuda, folded):
+    from oct_image_segmentation_models_torch._device import float32_precision
+    from oct_image_segmentation_models_torch.models.deeplabv3plus import fold_batchnorm
+
+    container, module, images = _deeplab(64, 128)
+    if folded:
+        module = fold_batchnorm(module)
+    x = torch.from_numpy(container.get_preprocess_input_fn()(images))
+    with torch.inference_mode(), float32_precision():
+        want = module(x)
+        got = copy.deepcopy(module).to(cuda)(x.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= DEEPLAB_PROB_ATOL
+    assert float((got.argmax(-1) == want.argmax(-1)).float().mean()) >= MIN_AGREEMENT
+
+
+@pytest.mark.parametrize("tie_parity", ["exact", "fast"])
+def test_deeplab_fused_pipeline_on_the_card_goes_through_b1(cuda, tie_parity):
+    """The folded DeepLab pipeline on the card: one B1 launch per call, rows
+    bit-equal to the CPU min-path on the card's maps, labels as the CPU
+    pipeline's."""
+    from oct_image_segmentation_models_torch.ops.inference import (
+        make_fused_pipeline,
+        select_optimized_forward,
+    )
+    from oct_image_segmentation_models_torch.ops.minpath import delineate_image_maps
+
+    container, module, images = _deeplab(64, 128)
+    forward, kind = select_optimized_forward(module)
+    assert kind == "folded"
+    # make_fused_pipeline moves the module it is given: one copy per device
+    pipes = {
+        dev: make_fused_pipeline(
+            copy.deepcopy(forward), container.get_preprocess_input_fn(),
+            minpath_tie_parity=tie_parity, device=dev,
+        )
+        for dev in ("cpu", cuda)
+    }
+    labels_cpu, _, _ = pipes["cpu"](torch.from_numpy(images))
+    before = delineate_cuda.launches
+    labels, maps, rows = pipes[cuda](torch.from_numpy(images))
+    torch.cuda.synchronize()
+    assert delineate_cuda.launches == before + 1
+    assert float((labels.cpu() == labels_cpu).float().mean()) >= MIN_AGREEMENT
+    want = delineate_image_maps(maps.cpu(), tie_parity=tie_parity)
+    assert torch.equal(rows.cpu(), want.to(torch.uint16))
 
 
 def test_segment_maps_on_the_card_goes_through_b1(cuda):

@@ -60,13 +60,20 @@ def test_port_imports_with_jax_blocked():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # Every module of the port, the workflows', training's and data
-    # parallelism's (parallel/mesh.py, parallel/input_pipeline.py) included.
-    assert int(out.stdout.strip().splitlines()[-1]) >= 51
+    # Every module of the port, the workflows', training's, data
+    # parallelism's (parallel/mesh.py, parallel/input_pipeline.py) and
+    # DeepLabV3+'s (models/resnet.py, models/deeplabv3plus.py) included.
+    assert int(out.stdout.strip().splitlines()[-1]) >= 53
 
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_deeplab_modules_are_scanned():
+    scanned = {str(p.relative_to(REPO)) for p in _sources()}
+    port = PORT.relative_to(REPO)
+    assert {str(port / "models/resnet.py"), str(port / "models/deeplabv3plus.py")} <= scanned
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))

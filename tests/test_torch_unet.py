@@ -207,8 +207,9 @@ def test_container_config_matches_jax():
 
 
 def test_registry_and_inference_only():
-    with pytest.raises(NotImplementedError, match="A11"):
-        get_model_class("deeplabv3plus")
+    from oct_image_segmentation_models_torch.models.deeplabv3plus import DeeplabV3Plus
+
+    assert get_model_class("deeplabv3plus") is DeeplabV3Plus
     with pytest.raises(ValueError):
         get_model_class("resnet")
     # Train mode runs since training was ported: batch statistics update
