@@ -93,6 +93,23 @@ Phases, each of which raises on failure:
      ``BNRefresher``, and the trained weights served through B1. Its
      serving times, FLOPs and profile and its train step's split and peak
      memory are printed with the others.
+   - the export path (``export_path``), run after the DeepLabV3+ path,
+     the deployment surface from files with no h5py: the bench's U-Net
+     and the full-width DeepLabV3+ saved as directory checkpoints
+     (``save_model_dir``), exported by ``python -m
+     oct_image_segmentation_models_torch.cli export ... --height 512
+     --width 1024 --dynamic-batch --platforms cuda`` in four subprocesses
+     started together, each timed: the optimized U-Net (s2d)
+     in both tie modes, a ``--no-optimize`` U-Net and the folded DeepLabV3+
+     with fast ties. Each artifact is loaded with
+     ``load_exported_pipeline`` and serves the 20-B-scan volume in batches
+     of 8, 8 and 4: through ``torch.ops.octseg.minpath_delineate_s2d``
+     (B2) for the s2d artifacts and ``minpath_delineate`` (B1) for the
+     others, the other kernel never launched; rows against the plain
+     min-path on the artifact's labels; labels, maps and rows equal bit
+     for bit to eager ``make_fused_pipeline`` with the same forward and
+     weights. Its ms per batch of 8 and the eager pipeline's
+     (``DeviceStopwatch``, median of 5), the export and load seconds.
 4. Times, with CUDA events (median of several runs after warm-up): both
    pipelines per batch and their stages, each kernel per call beside its
    plain version, its yardstick and its bound (B3: on the tensor cores,
@@ -112,7 +129,8 @@ The workflows' artifact writing (``predict``, ``evaluate_model``,
 lacks, so this script drives their device parts (``run_pipeline``, the
 graph-search API, the train and eval steps and the BN refresher); the CPU
 tests (``tests/test_torch_predict_evaluate.py``,
-``tests/test_torch_training.py``) hold the artifacts.
+``tests/test_torch_training.py``) hold the artifacts. The export path reads no
+HDF5: directory checkpoints and the ``torch.export`` artifact need none.
 
 It prints one ``{"dp": {...}}`` line with the data-parallel path's
 results, one ``{"kernels": [...]}`` line, the card's name and power limit,
@@ -131,6 +149,7 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -156,6 +175,8 @@ PAIR_ATOL = 1e-4
 # Argmax agreement between two float32 forwards that differ only in
 # summation order: a near-zero-margin pixel can flip.
 MIN_AGREEMENT = 0.999
+REPO = Path(__file__).resolve().parent
+EXPORT_TIMEOUT_S = 300  # one CLI export, start-up included
 
 
 def card_line() -> str:
@@ -1639,6 +1660,191 @@ def phase_deeplab_path(rng, seed: int, volume: np.ndarray) -> dict:
     return out
 
 
+# --- the export path -----------------------------------------------------
+
+EXPORT_TIMED = 5  # timed calls per pipeline (median), after EXPORT_WARMUP
+EXPORT_WARMUP = 2
+
+
+def serve_batches(pipe, volume: np.ndarray, batch: int = BATCH):
+    """``volume`` through ``pipe`` in batches of ``batch`` and a remainder
+    (8, 8, 4 for 20 B-scans) -> numpy (labels, maps, rows)."""
+    outs = [
+        pipe(torch.from_numpy(volume[i : i + batch]).pin_memory())
+        for i in range(0, len(volume), batch)
+    ]
+    return tuple(torch.cat([o[k] for o in outs]).cpu().numpy() for k in range(3))
+
+
+def stopwatch_ms(pipe, batch) -> float:
+    """Median ms per call of ``pipe`` on ``batch`` by ``DeviceStopwatch``."""
+    from oct_image_segmentation_models_torch.common.profiling import DeviceStopwatch
+
+    for _ in range(EXPORT_WARMUP):
+        pipe(batch)
+    sw = DeviceStopwatch()
+    times = []
+    for _ in range(EXPORT_TIMED):
+        sw.start()
+        out = pipe(batch)
+        times.append(sw.stop(out) * 1e3)
+    return statistics.median(times)
+
+
+def cli_export(checkpoint, artifact, *flags) -> subprocess.Popen:
+    """``python -m oct_image_segmentation_models_torch.cli export`` of
+    ``checkpoint`` at 512x1024 with a symbolic batch, for the card."""
+    return subprocess.Popen(
+        [
+            sys.executable, "-m", "oct_image_segmentation_models_torch.cli", "export",
+            str(checkpoint), str(artifact), "--height", str(H), "--width", str(W),
+            "--dynamic-batch", "--platforms", "cuda", *flags,
+        ],
+        cwd=str(REPO),
+        stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT,
+        text=True,
+    )
+
+
+def finish_export(proc: subprocess.Popen, t0: float, name: str) -> float:
+    try:
+        out, _ = proc.communicate(timeout=EXPORT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"cli export of {name} outlived {EXPORT_TIMEOUT_S} s")
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli export of {name} failed ({proc.returncode}):\n{out}")
+    print(f"cli export of {name}: {seconds:.2f} s; {out.strip().splitlines()[-1]}")
+    return seconds
+
+
+def serve_artifact(name, artifact, eager, volume, tie, kernel, export_s) -> dict:
+    """Load ``artifact`` on the card and serve ``volume`` through it in
+    batches of 8, 8, 4: ``kernel`` (B1 or B2) must launch and no other
+    kernel, the rows must pass ``check_rows``, and labels, maps and rows
+    must equal ``eager``'s (the same forward and weights) bit for bit."""
+    from oct_image_segmentation_models_torch.common.export import load_exported_pipeline
+
+    t0 = time.perf_counter()
+    art = load_exported_pipeline(artifact)
+    load_s = time.perf_counter() - t0
+    if art.metadata["minpath_tie_parity"] != tie or art.input_shape[0] is not None:
+        raise AssertionError(f"{name}: metadata {art.metadata}")
+    reset_counts()
+    got = serve_batches(art, volume)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    variants = read_variants()
+    other = "minpath_dp_s2d" if kernel == "minpath_dp" else "minpath_dp"
+    if counts[kernel] < 1 or counts[other] or counts["s2d_enc_pair"]:
+        raise AssertionError(f"{name}: the artifact launched {counts}, not {kernel} alone")
+    check_rows(tie, got[0], got[2])
+    want = serve_batches(eager, volume)
+    for what, a, b in zip(("labels", "maps", "rows"), got, want):
+        if a.shape != b.shape or a.dtype != b.dtype or not np.array_equal(a, b):
+            agree = float((got[0] == want[0]).mean())
+            raise AssertionError(
+                f"{name}: the artifact's {what} differ from eager serving "
+                f"(labels agreement {agree:.6f})"
+            )
+    batch = torch.from_numpy(volume[:BATCH]).pin_memory()
+    art_ms = stopwatch_ms(art, batch)
+    eager_ms = stopwatch_ms(eager, batch)
+    print(
+        f"export_path {name} ({art.metadata['optimized_forward']}, {tie} ties): launches "
+        f"{counts}, variants {variants}; labels, maps and rows bit-equal to eager serving "
+        f"on {len(volume)} B-scans (batches 8, 8, 4); artifact {art_ms:.3f} ms/batch, "
+        f"eager {eager_ms:.3f} ms/batch (batch {BATCH}); export {export_s:.2f} s, load "
+        f"{load_s:.3f} s"
+    )
+    return {
+        "kernel": kernel,
+        "launches": counts[kernel],
+        "variants": variants,
+        "optimized_forward": art.metadata["optimized_forward"],
+        "tie": tie,
+        "artifact_ms_per_batch": art_ms,
+        "eager_ms_per_batch": eager_ms,
+        "export_s": export_s,
+        "load_s": load_s,
+    }
+
+
+def phase_export_path(model, seed: int, volume: np.ndarray) -> dict:
+    """The deployment path from files, without h5py: the bench's U-Net and
+    the full-width DeepLabV3+ saved as directory checkpoints, exported by
+    the CLI to ``torch.export`` artifacts for the card (a symbolic batch
+    at 512x1024), loaded, and served through B2 (the optimized U-Net, both
+    tie modes) and B1 (``--no-optimize`` U-Net, DeepLabV3+ fast ties)."""
+    import tempfile
+
+    from oct_image_segmentation_models_torch.common.model_io import (
+        load_model_and_config,
+        save_model_dir,
+    )
+    from oct_image_segmentation_models_torch.models import get_model_class
+    from oct_image_segmentation_models_torch.ops.inference import (
+        make_fused_pipeline,
+        select_optimized_forward,
+    )
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    container, module = model
+    dl_container, dl_module = build_deeplab(seed)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_model_dir(tmp / "unet.orbax", "unet", container.get_config(), module.state_dict())
+        save_model_dir(
+            tmp / "deeplab.orbax", "deeplabv3plus", dl_container.get_config(),
+            dl_module.state_dict(),
+        )
+        del dl_module
+        jobs = {  # name: (checkpoint, flags, tie, kernel)
+            "unet_s2d_fast": ("unet.orbax", (), "fast", "minpath_dp_s2d"),
+            "unet_s2d_exact": ("unet.orbax", ("--minpath-tie-parity", "exact"), "exact",
+                               "minpath_dp_s2d"),
+            "unet_parity_fast": ("unet.orbax", ("--no-optimize",), "fast", "minpath_dp"),
+            "deeplab_folded_fast": ("deeplab.orbax", (), "fast", "minpath_dp"),
+        }
+        # The four exports run at once, each timed from its start.
+        t0 = time.perf_counter()
+        procs = {
+            name: cli_export(tmp / ckpt, tmp / f"{name}.pt2", *flags)
+            for name, (ckpt, flags, _, _) in jobs.items()
+        }
+        export_s = {
+            name: finish_export(proc, t0, f"{name} (four exports at once)")
+            for name, proc in procs.items()
+        }
+        loaded = {
+            ckpt: load_model_and_config(tmp / ckpt)
+            for ckpt in ("unet.orbax", "deeplab.orbax")
+        }
+        for name, (ckpt, flags, tie, kernel) in jobs.items():
+            model_loaded, config = loaded[ckpt]
+            forward, kind = select_optimized_forward(
+                model_loaded.module, optimize="--no-optimize" not in flags
+            )
+            preprocess = get_model_class(model_loaded.name)(**config).get_preprocess_input_fn()
+            eager = make_fused_pipeline(
+                None if kind == "s2d" else forward, preprocess,
+                labels_apply_fn=forward if kind == "s2d" else None,
+                num_classes=NUM_CLASSES, minpath_tie_parity=tie, device="cuda",
+            )
+            vol = rgb(volume) if ckpt == "deeplab.orbax" else volume
+            out[name] = serve_artifact(
+                name, tmp / f"{name}.pt2", eager, vol, tie, kernel, export_s[name]
+            )
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # --- the data-parallel path ----------------------------------------------
 
 DP_STEPS = 3  # steps of the world-of-one run held against the one-device step
@@ -2301,6 +2507,7 @@ def main(argv=None) -> int:
     times.update(predict_path_times(predict, volume))
     train = phase_train_path(rng, args.seed)
     deeplab = phase_deeplab_path(rng, args.seed, volume)
+    export = phase_export_path(model, args.seed, volume)
     dp = phase_dp_path(rng, model, volume, args.seed)
 
     card = env["card"]
@@ -2439,6 +2646,17 @@ def main(argv=None) -> int:
         f"the worst tensor's max ({dck['grad_worst_tensor']}); the phase "
         f"{deeplab['phase_s']:.1f} s"
     )
+    export_launches = {"minpath_dp": 0, "minpath_dp_s2d": 0}
+    for name, res in export.items():
+        if name != "phase_s":
+            export_launches[res["kernel"]] += res["launches"]
+            print(
+                f"[{card}] export_path {name}: artifact {res['artifact_ms_per_batch']:.3f} "
+                f"ms/batch, eager {res['eager_ms_per_batch']:.3f} ms/batch (batch {BATCH} x "
+                f"{H}x{W}, {res['tie']} ties, DeviceStopwatch median of {EXPORT_TIMED}); "
+                f"cli export {res['export_s']:.2f} s, load {res['load_s']:.3f} s"
+            )
+    print(f"[{card}] export_path phase {export['phase_s']:.1f} s")
     minpath_src = "oct_image_segmentation_models_torch/csrc/minpath.cu"
     tpu_minpath = "oct_image_segmentation_models_tpu/ops/minpath_pallas.py"
     kernels = []
@@ -2446,7 +2664,8 @@ def main(argv=None) -> int:
         (
             "minpath_dp",
             folded["launches"] + predict["launches"] + train["launches"]["minpath_dp"]
-            + deeplab["launches"] + sum(dp["two_ranks"]["b1_launches_per_rank"]),
+            + deeplab["launches"] + sum(dp["two_ranks"]["b1_launches_per_rank"])
+            + export_launches["minpath_dp"],
             parity["max_abs_err"],
             "b1",
             f"{tpu_minpath}:487",
@@ -2454,7 +2673,8 @@ def main(argv=None) -> int:
         (
             "minpath_dp_s2d",
             s2d["launches"] + train["launches"]["minpath_dp_s2d"]
-            + sum(dp["two_ranks"]["b2_launches_per_rank"]),
+            + sum(dp["two_ranks"]["b2_launches_per_rank"])
+            + export_launches["minpath_dp_s2d"],
             parity_s2d["max_abs_err"],
             "b2",
             f"{tpu_minpath}:533",
@@ -2480,10 +2700,12 @@ def main(argv=None) -> int:
             line["launches_train_path"] = train["launches"]["minpath_dp"]
             line["launches_deeplab_path"] = deeplab["launches"]
             line["launches_dp_path_per_rank"] = dp["two_ranks"]["b1_launches_per_rank"]
+            line["launches_export_path"] = export_launches["minpath_dp"]
         if key == "b2":
             line["launches_s2d_path"] = s2d["launches"]
             line["launches_train_path"] = train["launches"]["minpath_dp_s2d"]
             line["launches_dp_path_per_rank"] = dp["two_ranks"]["b2_launches_per_rank"]
+            line["launches_export_path"] = export_launches["minpath_dp_s2d"]
             line["transpose_then_b1_ms"] = times["b2_yardstick_fast_ms"]
             line["transpose_then_b1_ms_exact"] = times["b2_yardstick_exact_ms"]
         kernels.append(line)
@@ -2521,6 +2743,7 @@ def main(argv=None) -> int:
             "times": times,
             "train_path": train,
             "deeplab_path": deeplab,
+            "export_path": export,
             "dp_path": dp,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start,

@@ -49,3 +49,10 @@ class BaseModel(abc.ABC):
     def spatial_divisor(self) -> int:
         """Input H/W must be multiples of this for the forward to run."""
         return 1
+
+    def apply_pretrained_weights(self, state_dict: dict) -> dict:
+        """Hook: a freshly initialised ``state_dict`` with pretrained
+        weights put in, for the surfaces that build a model from scratch
+        (``train_model``). A no-op here; DeepLabV3+ loads its Keras
+        ResNet50 backbone."""
+        return state_dict

@@ -200,17 +200,45 @@ class DeeplabV3Plus(BaseModel):
         # with the stride-4 tap, which has ceil(H/4) rows.
         return 4
 
+    def apply_pretrained_weights(self, state_dict: dict) -> dict:
+        """Load the Keras-format ResNet50 ``.h5`` named by
+        ``pretrained_weights`` into the backbone of ``state_dict`` (conv
+        kernels, BN scales and offsets and moving statistics), leaving the
+        DSPP, decoder and head as they are: the reference's
+        ``weights="imagenet"`` backbone, from a local file."""
+        if not self.pretrained_weights:
+            return state_dict
+        from pathlib import Path
+
+        from ..common.model_io import (
+            flax_from_state_dict,
+            load_keras_resnet50_weights,
+            state_dict_from_flax,
+        )
+
+        h5_path = Path(self.pretrained_weights)
+        if not h5_path.exists():
+            raise FileNotFoundError(
+                f"pretrained_weights file not found: {h5_path} (the port "
+                "loads Keras ResNet50 .h5 files locally; it downloads nothing)"
+            )
+        variables = flax_from_state_dict(state_dict)
+        params, stats = load_keras_resnet50_weights(variables["params"]["resnet50"], h5_path)
+        variables["params"]["resnet50"] = params
+        stats_root = variables.setdefault("batch_stats", {}).setdefault("resnet50", {})
+        for layer_name, layer_stats in stats.items():
+            stats_root.setdefault(layer_name, {}).update(layer_stats)
+        loaded = state_dict_from_flax(variables)
+        return {
+            k: loaded[k].to(device=v.device, dtype=v.dtype) for k, v in state_dict.items()
+        }
+
     def build_model(
         self, generator: torch.Generator = None, device=None, use_bn: bool = True
     ) -> DeeplabV3PlusModule:
         """The DeepLabV3+ module in eval mode on ``device`` (None means
         CUDA), initialised from ``generator`` (a fresh unseeded one if
         None)."""
-        if self.pretrained_weights is not None:
-            raise NotImplementedError(
-                "pretrained_weights: the Keras ResNet50 .h5 import is not "
-                "ported to PyTorch yet (ROADMAP A12)"
-            )
         if str(self.dtype) != "float32":
             raise NotImplementedError(
                 f"dtype={self.dtype!r}: the PyTorch DeepLabV3+ runs float32 "

@@ -145,6 +145,80 @@ class StagedPipeline:
             return rows.to(torch.uint16), masks
 
 
+class FusedPipeline(torch.nn.Module):
+    """The fused chain as a module: ``forward(images_u8)`` -> ``(labels,
+    maps | None, rows | None)`` on the images' device, with no
+    ``inference_mode`` and no precision switch of its own, so that
+    ``torch.export`` can trace it (:mod:`..common.export`).
+    :func:`make_fused_pipeline` calls it under both."""
+
+    def __init__(
+        self,
+        forward: torch.nn.Module,
+        preprocess_fn: Callable,
+        s2d_labels: bool,
+        num_classes: int = None,
+        bg_ilm: bool = True,
+        bg_csi: bool = False,
+        max_grad: int = 1,
+        with_graph_search: bool = True,
+        minpath_backend: str = "auto",
+        minpath_tie_parity: str = "exact",
+        return_maps: bool = True,
+    ):
+        super().__init__()
+        self.forward_fn = forward
+        self._preprocess = preprocess_fn
+        self._s2d_labels = s2d_labels
+        self._num_classes = num_classes
+        self._bg_ilm, self._bg_csi = bg_ilm, bg_csi
+        self._max_grad = max_grad
+        self._graph_search = with_graph_search
+        self._backend = minpath_backend
+        self._tie_parity = minpath_tie_parity
+        self._return_maps = return_maps
+
+    def _s2d_tail(self, lab_s2d):
+        labels = d2s(lab_s2d)[..., 0]
+        # One ridge pass in the s2d domain; the image orientation is a
+        # permutation of its output.
+        maps_s2d = boundary_ops.boundary_maps_from_s2d_labels(
+            lab_s2d, self._num_classes, bg_ilm=self._bg_ilm, bg_csi=self._bg_csi,
+            transposed="s2d",
+        )
+        maps = boundary_ops.s2d_maps_to_image(maps_s2d) if self._return_maps else None
+        if not self._graph_search:
+            return labels, maps, None
+        rows = minpath_ops.delineate_s2d(
+            maps_s2d,
+            max_grad=self._max_grad,
+            tie_parity=self._tie_parity,
+            backend=self._backend,
+        )
+        return labels, maps, rows.to(torch.uint16)
+
+    def forward(self, images: torch.Tensor):
+        x = self._preprocess(images.to(torch.float32))
+        if self._s2d_labels:
+            return self._s2d_tail(self.forward_fn(x))
+        probs = self.forward_fn(x)
+        argmax_pred, categorical = boundary_ops.perform_argmax(probs, bin=True)
+        maps = boundary_ops.boundary_prob_maps(
+            categorical, bg_ilm=self._bg_ilm, bg_csi=self._bg_csi
+        )
+        labels = argmax_pred.to(torch.uint8)
+        maps_out = maps if self._return_maps else None
+        if not self._graph_search:
+            return labels, maps_out, None
+        rows = minpath_ops.delineate_image_maps(
+            maps,
+            max_grad=self._max_grad,
+            tie_parity=self._tie_parity,
+            backend=self._backend,
+        )
+        return labels, maps_out, rows.to(torch.uint16)
+
+
 def make_fused_pipeline(
     module: torch.nn.Module,
     preprocess_fn: Callable,
@@ -170,7 +244,7 @@ def make_fused_pipeline(
     s2d layout, from ``build_s2d_apply(..., output="labels_s2d")``), it
     replaces ``module``: the boundary maps and the min-path stay in the
     s2d domain. It needs ``num_classes``. The forward that runs is moved
-    to ``device``.
+    to ``device``. The chain is :class:`FusedPipeline`.
 
     ``mesh`` (a :class:`..parallel.mesh.Mesh`) makes the pipeline
     data-parallel: every rank calls it with the same batch, which must
@@ -183,51 +257,25 @@ def make_fused_pipeline(
             "(the s2d labels carry no channel axis to infer it from)"
         )
     device = resolve_device(mesh.device if mesh is not None and device is None else device)
-    if labels_apply_fn is not None:
-        labels_apply_fn = labels_apply_fn.to(device).eval()
-    else:
-        module = module.to(device).eval()
-
-    def s2d_tail(lab_s2d):
-        labels = d2s(lab_s2d)[..., 0]
-        # One ridge pass in the s2d domain; the image orientation is a
-        # permutation of its output.
-        maps_s2d = boundary_ops.boundary_maps_from_s2d_labels(
-            lab_s2d, num_classes, bg_ilm=bg_ilm, bg_csi=bg_csi, transposed="s2d"
-        )
-        maps = boundary_ops.s2d_maps_to_image(maps_s2d) if return_maps else None
-        if not with_graph_search:
-            return labels, maps, None
-        rows = minpath_ops.delineate_s2d(
-            maps_s2d,
-            max_grad=max_grad,
-            tie_parity=minpath_tie_parity,
-            backend=minpath_backend,
-        )
-        return labels, maps, rows.to(torch.uint16)
+    forward = labels_apply_fn if labels_apply_fn is not None else module
+    chain = FusedPipeline(
+        forward.to(device).eval(),
+        preprocess_fn,
+        s2d_labels=labels_apply_fn is not None,
+        num_classes=num_classes,
+        bg_ilm=bg_ilm,
+        bg_csi=bg_csi,
+        max_grad=max_grad,
+        with_graph_search=with_graph_search,
+        minpath_backend=minpath_backend,
+        minpath_tie_parity=minpath_tie_parity,
+        return_maps=return_maps,
+    )
 
     def pipeline(images):
         images = torch.as_tensor(images).to(device, non_blocking=True)
         with torch.inference_mode(), float32_precision():
-            x = preprocess_fn(images.to(torch.float32))
-            if labels_apply_fn is not None:
-                return s2d_tail(labels_apply_fn(x))
-            probs = module(x)
-            argmax_pred, categorical = boundary_ops.perform_argmax(probs, bin=True)
-            maps = boundary_ops.boundary_prob_maps(
-                categorical, bg_ilm=bg_ilm, bg_csi=bg_csi
-            )
-            labels = argmax_pred.to(torch.uint8)
-            maps_out = maps if return_maps else None
-            if not with_graph_search:
-                return labels, maps_out, None
-            rows = minpath_ops.delineate_image_maps(
-                maps,
-                max_grad=max_grad,
-                tie_parity=minpath_tie_parity,
-                backend=minpath_backend,
-            )
-            return labels, maps_out, rows.to(torch.uint16)
+            return chain(images)
 
     if mesh is None:
         return pipeline

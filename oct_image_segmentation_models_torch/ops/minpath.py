@@ -21,11 +21,14 @@ Two implementations share one contract, ``(..., W, H) uint8 ->
 - :func:`.minpath_cuda.delineate_cuda`, the hand-written CUDA kernel
   (``csrc/minpath.cu``) that replaces the Pallas TPU kernel.
 
-:func:`delineate` dispatches between them. The s2d maps of the s2d
-serving path, ``(B, M, Hb, Wb, 4)``, have the same pair:
-:func:`delineate_s2d_reference` and
+The s2d maps of the s2d serving path, ``(B, M, Hb, Wb, 4)``, have the
+same pair: :func:`delineate_s2d_reference` and
 :func:`.minpath_cuda.delineate_cuda_s2d`, which reads the s2d layout in
-place; :func:`delineate_s2d` dispatches between them.
+place. :func:`delineate` and :func:`delineate_s2d` reach both through the
+registered operators ``torch.ops.octseg.minpath_delineate[_s2d]``
+(:mod:`.minpath_ops`), whose CUDA implementation is the kernel and whose
+CPU implementation is the plain version, so that a traced or exported
+graph holds one opaque operator.
 
 :func:`delineate_float` is the DP on float maps with "fast" ties, plain
 PyTorch on every device as in JAX (an XLA scan there, no Pallas kernel).
@@ -70,13 +73,13 @@ def candidate_offsets(max_grad: int) -> list:
     )
 
 
-def use_kernel(maps_u8: torch.Tensor, backend: str) -> bool:
-    """True when the CUDA kernel should run: ``"auto"`` picks it for a
-    CUDA tensor and the plain version for a CPU tensor; ``"cuda"``
-    forces the kernel and raises on a CPU tensor; ``"reference"`` forces
-    the plain version."""
+def use_operator(maps_u8: torch.Tensor, backend: str) -> bool:
+    """True when the registered operator should run: ``"auto"`` takes it
+    on every device (its CUDA implementation is the kernel, its CPU
+    implementation the plain version); ``"cuda"`` takes it too and raises
+    on a CPU tensor; ``"reference"`` calls the plain version directly."""
     if backend == "auto":
-        return maps_u8.is_cuda
+        return True
     if backend == "cuda":
         if not maps_u8.is_cuda:
             raise ValueError(
@@ -89,6 +92,15 @@ def use_kernel(maps_u8: torch.Tensor, backend: str) -> bool:
     raise ValueError(f"unknown backend: {backend!r} (expected one of {BACKENDS})")
 
 
+def _check_operator_args(maps_u8: torch.Tensor, max_grad: int, tie_parity: str) -> bool:
+    """The plain version's argument checks, made before the operator is
+    called, so that both routes raise alike; returns ``exact``."""
+    if tie_parity not in ("exact", "fast"):
+        raise ValueError(f"unknown tie_parity: {tie_parity}")
+    validate_max_grad_packing(max_grad)
+    return tie_parity == "exact"
+
+
 def delineate(
     maps_u8: torch.Tensor,
     max_grad: int = 1,
@@ -96,12 +108,12 @@ def delineate(
     backend: str = "auto",
 ) -> torch.Tensor:
     """Delineate ``(..., W, H)`` uint8 maps into ``(..., W)`` int32 rows
-    with the CUDA kernel or the plain version (see :func:`use_kernel`)."""
-    if use_kernel(maps_u8, backend):
-        from .minpath_cuda import delineate_cuda
-
-        return delineate_cuda(maps_u8, max_grad=max_grad, tie_parity=tie_parity)
-    return delineate_reference(maps_u8, max_grad=max_grad, tie_parity=tie_parity)
+    through ``torch.ops.octseg.minpath_delineate`` or the plain version
+    (see :func:`use_operator`)."""
+    if not use_operator(maps_u8, backend):
+        return delineate_reference(maps_u8, max_grad=max_grad, tie_parity=tie_parity)
+    exact = _check_operator_args(maps_u8, max_grad, tie_parity)
+    return torch.ops.octseg.minpath_delineate(maps_u8, max_grad, exact)
 
 
 def delineate_s2d(
@@ -111,17 +123,15 @@ def delineate_s2d(
     backend: str = "auto",
 ) -> torch.Tensor:
     """Delineate s2d maps ``(B, M, Hb, Wb, 4)`` uint8 (channels
-    ``(q_h, q_w)``) into ``(B, M, 2 Wb)`` int32 rows with the CUDA kernel
-    or the plain version (see :func:`use_kernel`)."""
-    if use_kernel(maps_s2d_u8, backend):
-        from .minpath_cuda import delineate_cuda_s2d
-
-        return delineate_cuda_s2d(
+    ``(q_h, q_w)``) into ``(B, M, 2 Wb)`` int32 rows through
+    ``torch.ops.octseg.minpath_delineate_s2d`` or the plain version (see
+    :func:`use_operator`)."""
+    if not use_operator(maps_s2d_u8, backend):
+        return delineate_s2d_reference(
             maps_s2d_u8, max_grad=max_grad, tie_parity=tie_parity
         )
-    return delineate_s2d_reference(
-        maps_s2d_u8, max_grad=max_grad, tie_parity=tie_parity
-    )
+    exact = _check_operator_args(maps_s2d_u8, max_grad, tie_parity)
+    return torch.ops.octseg.minpath_delineate_s2d(maps_s2d_u8, max_grad, exact)
 
 
 def delineate_s2d_reference(
@@ -522,3 +532,8 @@ def calc_errors(predictions: torch.Tensor, truths: torch.Tensor) -> torch.Tensor
     return torch.where(
         invalid, torch.full_like(predictions, float("nan")), predictions - truths_f
     )
+
+
+# The operators' CPU implementations are this module's plain versions, so
+# they are registered once this module's functions exist.
+from . import minpath_ops  # noqa: E402,F401

@@ -8,7 +8,9 @@ checkpoint naming, best-checkpoint and early-stopping bookkeeping (Keras
 2.9 ``restore_best_weights`` semantics), the precise-BN refresh and
 finalisation, the rolling train-state file and the SIGTERM/SIGINT stop
 are the JAX package's. Checkpoints are the JAX package's native format,
-so its ``load_model`` reads them.
+so its ``load_model`` reads them, or with ``checkpoint_format="orbax"``
+the port's directory checkpoints (``model_io.save_model_dir``) under the
+JAX package's ``.orbax`` names.
 
 The device part is :class:`..common.data_generator.DataGenerator` ->
 batches uploaded from pinned memory -> ``train_step`` -> ``eval_step`` ->
@@ -30,8 +32,7 @@ first epoch into ``trace_rank{rank}.json``. Without a process group it is
 the one-device run, its batches through the same producer thread.
 
 Not ported: the space-to-depth training forward
-(``train_forward_impl="s2d"``; "auto" trains the plain module), Orbax
-checkpoints (A12).
+(``train_forward_impl="s2d"``; "auto" trains the plain module).
 """
 
 from __future__ import annotations
@@ -556,10 +557,6 @@ def train_model(
     world, nodes = (mesh.world, mesh.nodes) if mesh is not None else (1, 1)
     rank = mesh.rank if mesh is not None else 0
     is_main_process = rank == 0
-    if training_params.checkpoint_format == "orbax":
-        raise NotImplementedError(
-            "checkpoint_format='orbax' is not ported to PyTorch yet (ROADMAP A12)"
-        )
     if training_params.train_forward_impl == "s2d":
         raise NotImplementedError(
             "train_forward_impl='s2d' (the space-to-depth training forward) is not "
@@ -691,7 +688,7 @@ def train_model(
         model_architecture = model_name
     elif training_params.initial_model:
         log.info(f"Resuming training from model: {training_params.initial_model}")
-        model_name, model_config, variables = model_io.read_checkpoint(
+        model_name, model_config, initial_state = model_io.load_checkpoint(
             training_params.initial_model
         )
         _check_hyperparameter_conflicts(
@@ -701,7 +698,7 @@ def train_model(
             **{**model_config, **training_params.model_hyperparameters}
         )
         module = model_container.build_model(device=device)
-        module.load_state_dict(model_io.state_dict_from_flax(variables))
+        module.load_state_dict(initial_state)
         model_architecture = model_name
     else:
         model_architecture = training_params.model_architecture
@@ -716,6 +713,9 @@ def train_model(
         module = model_container.build_model(
             generator=torch.Generator().manual_seed(seed), device=device
         )
+        # Pretrained initialisation (DeepLabV3+'s Keras ResNet50 backbone);
+        # no-op for other containers.
+        module.load_state_dict(model_container.apply_pretrained_weights(module.state_dict()))
         model_name = model_architecture
 
     state = create_train_state(module, tx, mesh)
@@ -817,7 +817,10 @@ def train_model(
         if training_params.tensorboard and is_main_process
         else None
     )
-    ckpt_save, ckpt_suffix = model_io.save_model, ".hdf5"
+    if training_params.checkpoint_format == "orbax":
+        ckpt_save, ckpt_suffix = model_io.save_model_dir, ".orbax"
+    else:
+        ckpt_save, ckpt_suffix = model_io.save_model, ".hdf5"
 
     tracker.log_params(
         {

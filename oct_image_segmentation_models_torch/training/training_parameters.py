@@ -9,8 +9,9 @@ returns a ``torch.optim.Optimizer`` factory (see
 ``parallel.train_step.build_optimizer``). ``train_forward_impl`` "auto"
 and "parity" both train the plain module; "s2d" (the JAX package's
 space-to-depth training forward for the TPU) is not ported and raises at
-training time. ``checkpoint_format="orbax"`` is ROADMAP A12 and raises at
-training time.
+training time. ``checkpoint_format="orbax"`` writes the port's directory
+checkpoints (``common.model_io.save_model_dir``) under the JAX package's
+``.orbax`` names.
 """
 
 from __future__ import annotations

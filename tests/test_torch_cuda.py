@@ -11,6 +11,7 @@ import copy
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from oct_image_segmentation_models_torch.ops.boundary import image_maps_to_s2d
 from oct_image_segmentation_models_torch.ops.minpath import (
@@ -599,3 +600,84 @@ def test_create_mesh_puts_a_bare_cuda_on_the_local_card(cuda, tmp_path):
         assert mesh_lib.all_gather_host({"rank": mesh.rank}, mesh) == [{"rank": 0}]
     finally:
         dist.destroy_process_group()
+
+
+class _OpRecorder(TorchDispatchMode):
+    """The names of the operators that run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("tie_parity", ["exact", "fast"])
+def test_delineate_reaches_the_registered_operators_on_the_card(cuda, tie_parity):
+    """``minpath.delineate[_s2d]`` on the card call
+    ``torch.ops.octseg.minpath_delineate[_s2d]``, whose CUDA implementation
+    is one launch of B1/B2, bit-equal to the plain version."""
+    from oct_image_segmentation_models_torch.ops import minpath
+
+    maps = torch.from_numpy(_maps(np.random.default_rng(5), 3, 64, 96)).to(cuda)
+    s2d_maps = image_maps_to_s2d(maps.transpose(-1, -2)[None]).contiguous()
+    for fn, op, wrapper, ref, x in (
+        (minpath.delineate, "octseg.minpath_delineate.default", delineate_cuda,
+         delineate_reference, maps),
+        (minpath.delineate_s2d, "octseg.minpath_delineate_s2d.default", delineate_cuda_s2d,
+         delineate_s2d_reference, s2d_maps),
+    ):
+        before = wrapper.launches
+        with _OpRecorder() as rec:
+            got = fn(x, tie_parity=tie_parity)
+        torch.cuda.synchronize()
+        assert rec.ops == [op]
+        assert wrapper.launches == before + 1
+        assert torch.equal(got, ref(x, tie_parity=tie_parity))
+
+
+def test_exported_pipeline_on_the_card_matches_eager(cuda, tmp_path):
+    """An artifact exported for the CPU and the card: on the card it
+    launches B2 once per call and gives eager serving's labels, maps and
+    rows bit for bit at two batch sizes; its CPU program matches the CPU
+    eager pipeline."""
+    from oct_image_segmentation_models_torch.common.export import (
+        export_inference_pipeline,
+        load_exported_pipeline,
+    )
+    from oct_image_segmentation_models_torch.common.model_io import save_model_dir
+    from oct_image_segmentation_models_torch.models import get_model_class
+    from oct_image_segmentation_models_torch.ops.inference import (
+        make_fused_pipeline,
+        select_optimized_forward,
+    )
+
+    container = get_model_class("unet")(
+        input_channels=1, num_classes=4, image_height=64, image_width=96,
+        start_neurons=4, pool_layers=3,
+    )
+    module = container.build_model(generator=torch.Generator().manual_seed(3), device="cpu")
+    save_model_dir(tmp_path / "model.orbax", "unet", container.get_config(), module.state_dict())
+    out = export_inference_pipeline(
+        tmp_path / "model.orbax", tmp_path / "model.pt2", batch_size=None, device="cpu"
+    )
+    forward, kind = select_optimized_forward(module)
+    assert kind == "s2d"
+    rng = np.random.default_rng(0)
+    for dev in ("cpu", cuda):
+        art = load_exported_pipeline(out, device=dev)
+        eager = make_fused_pipeline(
+            None, container.get_preprocess_input_fn(), labels_apply_fn=copy.deepcopy(forward),
+            num_classes=4, minpath_tie_parity="fast", device=dev,
+        )
+        for batch in (1, 3):
+            images = rng.integers(0, 256, (batch, 64, 96, 1), dtype=np.uint8)
+            before = delineate_cuda_s2d.launches
+            got = art(images)
+            if dev == cuda:
+                torch.cuda.synchronize()
+                assert delineate_cuda_s2d.launches == before + 1
+            for a, b in zip(got, eager(torch.from_numpy(images))):
+                assert a.device == b.device and torch.equal(a, b)

@@ -61,9 +61,11 @@ def test_port_imports_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr
     # Every module of the port, the workflows', training's, data
-    # parallelism's (parallel/mesh.py, parallel/input_pipeline.py) and
-    # DeepLabV3+'s (models/resnet.py, models/deeplabv3plus.py) included.
-    assert int(out.stdout.strip().splitlines()[-1]) >= 53
+    # parallelism's (parallel/mesh.py, parallel/input_pipeline.py),
+    # DeepLabV3+'s (models/resnet.py, models/deeplabv3plus.py) and the
+    # deployment surface's (cli.py, common/export.py,
+    # common/dataset_construction.py, ops/minpath_ops.py) included.
+    assert int(out.stdout.strip().splitlines()[-1]) >= 57
 
 
 def _sources():
@@ -74,6 +76,16 @@ def test_deeplab_modules_are_scanned():
     scanned = {str(p.relative_to(REPO)) for p in _sources()}
     port = PORT.relative_to(REPO)
     assert {str(port / "models/resnet.py"), str(port / "models/deeplabv3plus.py")} <= scanned
+
+
+def test_deployment_modules_are_scanned():
+    scanned = {str(p.relative_to(REPO)) for p in _sources()}
+    port = PORT.relative_to(REPO)
+    assert {
+        str(port / name)
+        for name in ("cli.py", "common/export.py", "common/dataset_construction.py",
+                     "ops/minpath_ops.py")
+    } <= scanned
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))

@@ -338,9 +338,16 @@ def test_parameters_reject_as_jax(inputs, tmp_path, bad, match):
             pkg["PredictionParams"](**{**pred_kwargs, **bad})
 
 
-def test_model_loading_surface(inputs, tmp_path):
-    """Native checkpoints load, a sidecar config wins, and what is not
-    ported yet raises and says so."""
+def test_model_loading_surface(inputs, tmp_path, monkeypatch):
+    """Native checkpoints load, a sidecar config wins, and what cannot be
+    loaded raises as in JAX: MLflow without the package, a directory that
+    is no checkpoint, a Keras file without its sidecar config."""
+    import sys
+
+    from oct_image_segmentation_models_tpu.common.model_io import (
+        load_model_and_config as jax_load_model_and_config,
+    )
+
     model_path, _, _ = inputs
     loaded, config = load_model_and_config(model_path, device="cpu")
     plain = load_model(model_path, device="cpu")
@@ -349,17 +356,20 @@ def test_model_loading_surface(inputs, tmp_path):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="mlflow_tracking_uri"):
         load_model_and_config(model_path, mlflow_run_uuid="abc", device="cpu")
-    for kwargs, path in (
-        ({"mlflow_tracking_uri": "file:///nowhere"}, model_path),
-        ({}, tmp_path),
-    ):
-        with pytest.raises(NotImplementedError, match="A12"):
-            load_model_and_config(path, device="cpu", **kwargs)
     keras = tmp_path / "keras.h5"
     with h5py.File(keras, "w") as f:
         f.attrs["keras_version"] = "2.4.0"
-    with pytest.raises(NotImplementedError, match="A12"):
-        load_model_and_config(keras, device="cpu")
+    monkeypatch.setitem(sys.modules, "mlflow", None)
+    for kwargs, path, error, match in (
+        ({"mlflow_tracking_uri": "file:///nowhere"}, model_path, RuntimeError,
+         "mlflow is not installed"),
+        ({}, tmp_path, ValueError, "is a directory but not"),
+        ({}, keras, FileNotFoundError, "model_config.json"),
+    ):
+        with pytest.raises(error, match=match):
+            load_model_and_config(path, device="cpu", **kwargs)
+        with pytest.raises(error):
+            jax_load_model_and_config(path, **kwargs)
 
 
 def test_run_pipeline_needs_cuda_unless_cpu_is_asked(inputs):

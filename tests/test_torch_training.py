@@ -352,8 +352,6 @@ def test_train_model_refusals(small_dataset, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_model(_params(small_dataset, tmp_path, device=None))
-    with pytest.raises(NotImplementedError, match="A12"):
-        train_model(_params(small_dataset, tmp_path, checkpoint_format="orbax"))
     with pytest.raises(NotImplementedError, match="s2d"):
         train_model(_params(small_dataset, tmp_path, train_forward_impl="s2d"))
     with pytest.raises(ValueError, match="needs a mesh"):
