@@ -110,6 +110,23 @@ Phases, each of which raises on failure:
      for bit to eager ``make_fused_pipeline`` with the same forward and
      weights. Its ms per batch of 8 and the eager pipeline's
      (``DeviceStopwatch``, median of 5), the export and load seconds.
+   - the bfloat16 path (``bf16_path``), run after the export path, on
+     the weights that the train path and the DeepLabV3+ path trained: the
+     bfloat16 s2d U-Net and folded DeepLabV3+ forwards on the card against
+     the CPU at 2 x 128x256 (``BF16_PROB_ATOL``, argmax agreement); the
+     20-B-scan volume through ``VolumeSegmenter(compute_dtype="bfloat16")``
+     in both tie modes, the U-Net through B2 and the DeepLab through B1,
+     only that kernel launched, rows against the plain min-path; the same
+     weights' bfloat16 labels and rows against their float32 serving
+     within the reference's budget (agreement > 0.995, rows MAE < 0.05
+     px); each pipeline's ms per batch, B-scans/s, the forward's TFLOP/s
+     against 989 TFLOP/s dense bf16, and the busy share; one bfloat16 train
+     step at batch 2 of 128x256 on the card against the CPU (and both
+     against the CPU float64 step); ``BF16_TRAIN_STEPS`` bfloat16 train
+     steps at batch 8 of 512x1024 (the loss must fall) with the step's
+     ms, split, FLOPs and peak memory; and one bfloat16 s2d export
+     artifact, traced in-process, serving the volume bit-equal to eager
+     bfloat16 serving with 3 B2 launches.
 4. Times, with CUDA events (median of several runs after warm-up): both
    pipelines per batch and their stages, each kernel per call beside its
    plain version, its yardstick and its bound (B3: on the tensor cores,
@@ -132,8 +149,9 @@ tests (``tests/test_torch_predict_evaluate.py``,
 ``tests/test_torch_training.py``) hold the artifacts. The export path reads no
 HDF5: directory checkpoints and the ``torch.export`` artifact need none.
 
-It prints one ``{"dp": {...}}`` line with the data-parallel path's
-results, one ``{"kernels": [...]}`` line, the card's name and power limit,
+It prints one ``{"bf16": {...}}`` line with the bfloat16 path's results,
+one ``{"dp": {...}}`` line with the data-parallel path's results, one
+``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device it
 exits with code 2 and prints no result. It imports nothing of JAX.
 """
@@ -1280,6 +1298,7 @@ def phase_train_path(rng, seed: int) -> dict:
         f"{out['served_dice_folded']:.4f}, s2d {out['served_dice_s2d']:.4f}; folded vs "
         f"s2d labels agreement {out['served_agreement']:.6f}"
     )
+    out["_trained"] = (container, module)  # for the bfloat16 path, not printed
     return out
 
 
@@ -1634,6 +1653,7 @@ def deeplab_train(rng, seed: int) -> dict:
     ]))
     out["served_launches"] = served["launches"]
     print(f"deeplab trained weights on {BATCH} held-out B-scans: dice_coef_macro {out['served_dice']:.4f}")
+    out["_trained"] = (container, module)  # for the bfloat16 path, not printed
     return out
 
 
@@ -1654,6 +1674,7 @@ def phase_deeplab_path(rng, seed: int, volume: np.ndarray) -> dict:
     torch.cuda.empty_cache()
     out["step_check"] = deeplab_step_card_vs_cpu(rng, seed)
     out["train"] = deeplab_train(rng, seed)
+    out["_trained"] = out["train"].pop("_trained")
     out["launches"] += out["train"]["served_launches"]
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t0
@@ -1842,6 +1863,410 @@ def phase_export_path(model, seed: int, volume: np.ndarray) -> dict:
             )
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# --- the bfloat16 path ---------------------------------------------------
+
+# Dense bfloat16 on the H100's tensor cores (SXM data sheet).
+BF16_FLOPS_PER_S = 989e12
+BF16_FWD_H, BF16_FWD_W, BF16_FWD_BATCH = 128, 256, 2
+# The bfloat16 forward on the card against the CPU's, same weights: both
+# round every conv's output to bfloat16, from float32 sums taken in
+# another order, so a value near a rounding boundary lands one bfloat16
+# ulp (2**-8 relative) apart and carries to the head. Kept apart from the
+# float32 PROB_ATOL.
+BF16_PROB_ATOL = 5e-2
+# The reference's bfloat16 budget (JAX tests/test_s2d_unet.py, BASELINE):
+# bfloat16 labels against float32 labels of trained weights, and the
+# served rows' mean absolute difference in pixels.
+BUDGET_AGREEMENT, BUDGET_MAE_PX = 0.995, 0.05
+BF16_TRAIN_IMAGES = 32  # four batches of 8
+BF16_TRAIN_STEPS = 32  # eight passes over the four batches
+BF16_TRAIN_WARMUP, BF16_TRAIN_TIMED = 2, 5
+# One bfloat16 train step, card against CPU: each rounds to bfloat16
+# where its float32 sums fall, the batch statistics move values across
+# rounding boundaries, and the flips carry through the backward (the
+# CPU tests measure JAX's own bfloat16 gradients 0.05-0.6 in relative L2
+# off the float64 step's at a small width). So per tensor the card's
+# gradient is held within relative L2 BF16_GRAD_REL_L2 of the CPU's, the
+# head's within BF16_HEAD_GRAD_REL_L2, the loss within BF16_LOSS_RTOL;
+# and, against the CPU float64 step, the card's mean relative L2 error
+# within BF16_ACCURACY_RATIO times the CPU bfloat16 step's.
+BF16_LOSS_RTOL = 1e-2
+BF16_GRAD_REL_L2 = 0.6
+BF16_HEAD_GRAD_REL_L2 = 0.05
+BF16_ACCURACY_RATIO = 1.5
+
+
+def bf16_forward_card_vs_cpu(rng, seed: int, trained_unet, trained_deeplab) -> dict:
+    """The bfloat16 s2d U-Net and folded DeepLabV3+ forwards on the card
+    against the CPU at 2 x 128x256, the same weights on both: the seeded
+    weights of the bench's U-Net and of the DeepLabV3+ (as the float32
+    checks take them), held to probabilities within ``BF16_PROB_ATOL`` and
+    argmax agreement >= ``MIN_AGREEMENT``; then the trained weights of the
+    train and DeepLabV3+ paths, whose numbers are printed and kept, not
+    held: those models were trained at 512x1024, and at 128x256 many
+    pixels sit near a tie."""
+    from oct_image_segmentation_models_torch._device import precision
+    from oct_image_segmentation_models_torch.models.deeplabv3plus import fold_batchnorm
+    from oct_image_segmentation_models_torch.ops.s2d_unet import build_s2d_apply
+
+    images = layered_bscans(rng, BF16_FWD_BATCH, BF16_FWD_H, BF16_FWD_W, NUM_CLASSES)
+    x_unet = torch.from_numpy(images.astype(np.float32) / 255.0)
+    seeded_unet = build_unet(seed)[1]
+    dl_container, seeded_deeplab = build_deeplab(seed, BF16_FWD_H, BF16_FWD_W)
+    x_dl = torch.from_numpy(dl_container.get_preprocess_input_fn()(rgb(images)))
+
+    def unet_pair(module):
+        return (
+            build_s2d_apply(module, output="probs", dtype="bfloat16"),
+            build_s2d_apply(copy.deepcopy(module).cpu(), output="probs", dtype="bfloat16"),
+            x_unet,
+        )
+
+    def deeplab_pair(module):
+        return (
+            fold_batchnorm(module, "bfloat16"),
+            fold_batchnorm(copy.deepcopy(module).cpu(), "bfloat16"),
+            x_dl,
+        )
+
+    cases = {
+        "unet_s2d": (True, unet_pair(seeded_unet)),
+        "deeplab_folded": (True, deeplab_pair(seeded_deeplab)),
+        "unet_s2d_trained": (False, unet_pair(trained_unet)),
+        "deeplab_folded_trained": (False, deeplab_pair(trained_deeplab)),
+    }
+    out = {}
+    for name, (held, (card, cpu, x)) in cases.items():
+        with torch.inference_mode(), precision(torch.bfloat16):
+            p_card = card(x.cuda()).cpu()
+            p_cpu = cpu(x)
+        err = float((p_card - p_cpu).abs().max())
+        agree = float((p_card.argmax(-1) == p_cpu.argmax(-1)).float().mean())
+        print(
+            f"bf16 {name} forward card vs CPU ({BF16_FWD_BATCH} x {BF16_FWD_H}x{BF16_FWD_W}): "
+            f"max |dp| {err:.3e}, argmax agreement {agree:.6f}"
+            + (f" (held: {BF16_PROB_ATOL:g}, >= {MIN_AGREEMENT})" if held else " (not held)")
+        )
+        if p_card.dtype != torch.float32 or not torch.isfinite(p_card).all():
+            raise AssertionError(f"bf16 {name}: probabilities {p_card.dtype}, not finite float32")
+        if held and (err > BF16_PROB_ATOL or agree < MIN_AGREEMENT):
+            raise AssertionError(f"bf16 {name} card forward off the CPU's: {err}, {agree}")
+        out[f"{name}_prob_max_abs_err"], out[f"{name}_argmax_agreement"] = err, agree
+    return out
+
+
+def bf16_serving(name, model_name, container, module, volume, kind, kernel) -> dict:
+    """``VolumeSegmenter(compute_dtype="bfloat16")`` on ``volume`` in both
+    tie modes: ``kernel`` alone launches, the rows pass ``check_rows``.
+    Then the float32 segmenter on the same weights (fast ties) for the
+    budget, its launches not counted: labels agreement and rows MAE."""
+    from oct_image_segmentation_models_torch.common.model_io import LoadedModel
+    from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
+
+    config = container.get_config()
+    loaded = LoadedModel(model_name, module, config)
+    segs = {
+        tie: VolumeSegmenter(
+            loaded, config, batch_size=BATCH, compute_dtype="bfloat16",
+            minpath_tie_parity=tie, device="cuda",
+        )
+        for tie in ("fast", "exact")
+    }
+    if any(seg.kind != kind for seg in segs.values()):
+        raise AssertionError(f"bf16 {name}: VolumeSegmenter chose {segs['fast'].kind}")
+    reset_counts()
+    served = {tie: seg.segment_volume(volume) for tie, seg in segs.items()}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    variants = read_variants()
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    print(
+        f"bf16 {name}: {len(volume)} B-scans through VolumeSegmenter(compute_dtype="
+        f"'bfloat16', kind {kind}) in both tie modes, launches {counts}, variants {variants}"
+    )
+    if counts[kernel] < 1 or others:
+        raise AssertionError(f"bf16 {name} launched {counts}, not {kernel} alone")
+    for tie, (labels, rows) in served.items():
+        check_rows(tie, labels, rows)
+    f32 = VolumeSegmenter(loaded, config, batch_size=BATCH, device="cuda")
+    lab32, rows32 = f32.segment_volume(volume)
+    lab16, rows16 = served["fast"]
+    agree = float((lab16 == lab32).mean())
+    mae = float(np.abs(rows16.astype(np.float64) - rows32.astype(np.float64)).mean())
+    print(
+        f"bf16 {name} budget, trained weights, bfloat16 vs float32 serving on "
+        f"{len(volume)} B-scans: label agreement {agree:.6f} (> {BUDGET_AGREEMENT}), rows "
+        f"MAE {mae:.4f} px (< {BUDGET_MAE_PX})"
+    )
+    if not (agree > BUDGET_AGREEMENT and mae < BUDGET_MAE_PX):
+        raise AssertionError(f"bf16 {name} outside the budget: agreement {agree}, MAE {mae}")
+    return {
+        "launches": counts[kernel],
+        "variants": variants,
+        "budget_agreement": agree,
+        "budget_rows_mae_px": mae,
+        "pipeline": segs["fast"]._pipeline,
+    }
+
+
+def bf16_serving_times(serving: dict, forward, x, batch) -> dict:
+    """ms and B-scans/s of one batch through the bfloat16 pipeline, the
+    forward's ms, GFLOP and TFLOP/s against dense bfloat16, and the
+    pipeline's busy share."""
+    from oct_image_segmentation_models_torch._device import precision
+
+    out = {"pipeline_ms": time_cuda(lambda: serving["pipeline"](batch), iters=3)}
+    out["pipeline_bscans_per_s"] = BATCH / out["pipeline_ms"] * 1e3
+    with torch.inference_mode(), precision(torch.bfloat16):
+        out["forward_gflop"] = forward_flop(forward, x) / 1e9
+        out["forward_ms"] = time_cuda(lambda: forward(x), iters=3)
+    out["forward_tflops"] = out["forward_gflop"] / out["forward_ms"]
+    out["forward_share_of_bf16_peak"] = out["forward_tflops"] * 1e12 / BF16_FLOPS_PER_S
+    out["forward_bound_ms"] = out["forward_gflop"] * 1e9 / BF16_FLOPS_PER_S * 1e3
+    profiled = profile_pipeline(serving["pipeline"], batch)
+    out["device_busy_share"] = profiled["device_busy_share"]
+    out["device_ms_per_batch"] = profiled["device_ms_per_batch"]
+    out["top_kernels_ms_per_batch"] = profiled["top_kernels_ms_per_batch"][:4]
+    return out
+
+
+def bf16_step_card_vs_cpu(rng, seed: int) -> dict:
+    """One bfloat16 train step of the full-width U-Net at batch 2 of
+    128x256 on the card and on the CPU, from the same weights, batch and
+    dropout mask; and the CPU float64 step of the same weights."""
+    from oct_image_segmentation_models_torch.models import get_model_class
+    from oct_image_segmentation_models_torch.models import unet as unet_module
+
+    kw = dict(
+        input_channels=1, num_classes=NUM_CLASSES, image_height=CHECK_H,
+        image_width=CHECK_W, start_neurons=32, pool_layers=4, conv_layers=2,
+    )
+    card = get_model_class("unet")(**kw, dtype="bfloat16").build_model(
+        generator=torch.Generator().manual_seed(seed + 5), device="cuda"
+    )
+    initial = copy.deepcopy(card).cpu()
+    reference = get_model_class("unet")(**kw).build_model(device="cpu")
+    reference.load_state_dict(initial.state_dict())
+    images, labels = layered_dataset(rng, CHECK_BATCH, CHECK_H, CHECK_W, NUM_CLASSES)
+    x = torch.from_numpy(images.astype(np.float32) / 255.0)
+    y = torch.from_numpy(labels)
+    masks = {}
+
+    def shared_mask(t, generator):
+        if "mask" not in masks:
+            draw = torch.rand(t.shape, generator=torch.Generator().manual_seed(seed))
+            masks["mask"] = draw < 1.0 - unet_module.DROPOUT_RATE
+        return masks["mask"].to(t.device)
+
+    def run(module):
+        dev = next(module.parameters()).device
+        state, step, _ = _train_objects(module, seed)
+        _, loss, _ = step(state, x.to(dev), y.to(dev), None)
+        return float(loss), {k: p.grad.detach().cpu().double() for k, p in module.named_parameters()}
+
+    drawn = unet_module.dropout_mask
+    unet_module.dropout_mask = shared_mask
+    try:
+        l_card, g_card = run(card)
+        l_cpu, g_cpu = run(initial)
+        _, g64 = run(reference.double())
+    finally:
+        unet_module.dropout_mask = drawn
+    if not all(p.dtype == torch.float32 for p in card.parameters()):
+        raise AssertionError("the bfloat16 module's parameters are not float32")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    worst, worst_head, err_card, err_cpu = ("", 0.0), 0.0, [], []
+    for k, g in g64.items():
+        if k.startswith("blocks.") and k.endswith("conv.bias"):
+            continue  # exact gradient 0 (BatchNorm takes the mean out)
+        if not torch.isfinite(g_card[k]).all():
+            raise AssertionError(f"bf16 card gradient {k} not finite")
+        r = rel(g_card[k], g_cpu[k])
+        if k.startswith("head."):
+            worst_head = max(worst_head, r)
+        elif r > worst[1]:
+            worst = (k, r)
+        err_card.append(rel(g_card[k], g))
+        err_cpu.append(rel(g_cpu[k], g))
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    mean_card, mean_cpu = float(np.mean(err_card)), float(np.mean(err_cpu))
+    print(
+        f"bf16 train step card vs CPU (start_neurons 32, batch {CHECK_BATCH} x "
+        f"{CHECK_H}x{CHECK_W}): loss {l_card:.6f} / {l_cpu:.6f} (rel {loss_err:.2e}, tolerance "
+        f"{BF16_LOSS_RTOL:g}); gradients card vs CPU relative L2: worst {worst[1]:.3f} "
+        f"({worst[0]}, tolerance {BF16_GRAD_REL_L2:g}), head {worst_head:.2e} (tolerance "
+        f"{BF16_HEAD_GRAD_REL_L2:g}); mean relative L2 off the CPU float64 step: card "
+        f"{mean_card:.4f}, CPU bfloat16 {mean_cpu:.4f} (ratio <= {BF16_ACCURACY_RATIO:g})"
+    )
+    if not (np.isfinite(l_card) and loss_err <= BF16_LOSS_RTOL):
+        raise AssertionError(f"bf16 card train-step loss {l_card} off the CPU's {l_cpu}")
+    if worst[1] > BF16_GRAD_REL_L2 or worst_head > BF16_HEAD_GRAD_REL_L2:
+        raise AssertionError(f"bf16 card gradients off the CPU's: {worst}, head {worst_head}")
+    if mean_card > BF16_ACCURACY_RATIO * mean_cpu:
+        raise AssertionError(f"bf16 card gradients less accurate: {mean_card} vs {mean_cpu}")
+    return {
+        "loss_rel_err": loss_err,
+        "grad_worst_rel_l2": worst[1],
+        "grad_worst_tensor": worst[0],
+        "grad_head_rel_l2": worst_head,
+        "grad_mean_rel_l2_vs_float64_card": mean_card,
+        "grad_mean_rel_l2_vs_float64_cpu": mean_cpu,
+    }
+
+
+def bf16_train(rng, seed: int) -> dict:
+    """The bench's U-Net with ``dtype="bfloat16"`` trained
+    ``BF16_TRAIN_STEPS`` steps at batch 8 of 512x1024 (focal + Dice, Adam
+    1e-3): ms per step, split, FLOPs and peak memory; the loss must fall."""
+    from oct_image_segmentation_models_torch.models import get_model_class
+
+    container = get_model_class("unet")(
+        input_channels=1, num_classes=NUM_CLASSES, image_height=H, image_width=W,
+        start_neurons=32, pool_layers=4, conv_layers=2, dtype="bfloat16",
+    )
+    module = container.build_model(generator=torch.Generator().manual_seed(seed + 7), device="cuda")
+    if module.compute_dtype != torch.bfloat16:
+        raise AssertionError("the bfloat16 container built another module")
+    preprocess = container.get_preprocess_input_fn()
+    images, labels = layered_dataset(rng, BF16_TRAIN_IMAGES, H, W, NUM_CLASSES)
+    batches = [
+        (
+            torch.from_numpy(preprocess(images[i:i + BATCH].astype(np.float32))).cuda(),
+            torch.from_numpy(labels[i:i + BATCH]).cuda(),
+        )
+        for i in range(0, BF16_TRAIN_IMAGES, BATCH)
+    ]
+    state, step, _ = _train_objects(module, seed)
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    losses = []
+    for i in range(BF16_TRAIN_WARMUP):
+        losses.append(step(state, *batches[i % len(batches)], generator)[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    phases = ("forward", "backward", "optimizer")
+    splits = {name: [] for name in ("step",) + phases}
+    for i in range(BF16_TRAIN_WARMUP, BF16_TRAIN_WARMUP + BF16_TRAIN_TIMED):
+        ev = {name: torch.cuda.Event(enable_timing=True) for name in ("start",) + phases}
+        ev["start"].record()
+        bx, by = batches[i % len(batches)]
+        losses.append(step(state, bx, by, generator, on_phase=lambda n: ev[n].record())[1])
+        ev["optimizer"].synchronize()
+        for a, b in zip(("start",) + phases, phases):
+            splits[b].append(ev[a].elapsed_time(ev[b]))
+        splits["step"].append(ev["start"].elapsed_time(ev["optimizer"]))
+    out = {f"{name}_ms": statistics.median(v) for name, v in splits.items()}
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["bscans_per_s"] = BATCH / out["step_ms"] * 1e3
+    flop = train_flop(step, state, *batches[0], generator)
+    done = BF16_TRAIN_WARMUP + BF16_TRAIN_TIMED + 1  # the FLOP count took a step
+    for i in range(done, BF16_TRAIN_STEPS):
+        losses.append(step(state, *batches[i % len(batches)], generator)[1])
+    losses = torch.stack(losses).cpu().numpy()
+    n = len(batches)
+    first, last = float(np.mean(losses[:n])), float(np.mean(losses[-n:]))
+    out.update(
+        gflop_per_step=flop / 1e9,
+        tflops=flop / 1e9 / out["step_ms"],
+        share_of_bf16_peak=flop / out["step_ms"] * 1e3 / BF16_FLOPS_PER_S,
+        bound_ms=flop / BF16_FLOPS_PER_S * 1e3,
+        steps=int(state.step),
+        loss_first_pass=first,
+        loss_last_pass=last,
+    )
+    print(
+        f"bf16 train: {out['steps']} steps at batch {BATCH} x {H}x{W}, mean loss over the "
+        f"first pass of {n} batches {first:.4f} -> last pass {last:.4f}"
+    )
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"bf16 training loss did not fall: {first} -> {last}")
+    return out
+
+
+def bf16_export(container, module, volume: np.ndarray) -> dict:
+    """The trained U-Net as a directory checkpoint, exported in-process
+    with ``compute_dtype="bfloat16"`` (s2d, a symbolic batch, fast ties)
+    for the card, loaded and served on the 20-B-scan volume in batches of
+    8, 8, 4: three B2 launches, bit-equal to eager bfloat16 serving."""
+    import tempfile
+
+    from oct_image_segmentation_models_torch.common.export import export_inference_pipeline
+    from oct_image_segmentation_models_torch.common.model_io import (
+        load_model_and_config,
+        save_model_dir,
+    )
+    from oct_image_segmentation_models_torch.ops.inference import (
+        make_fused_pipeline,
+        select_optimized_forward,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_model_dir(tmp / "unet.orbax", "unet", container.get_config(), module.state_dict())
+        t0 = time.perf_counter()
+        artifact = export_inference_pipeline(
+            tmp / "unet.orbax", tmp / "unet_bf16.pt2", image_height=H, image_width=W,
+            batch_size=None, compute_dtype="bfloat16", platforms=("cuda",),
+        )
+        export_s = time.perf_counter() - t0
+        loaded, config = load_model_and_config(tmp / "unet.orbax")
+        forward, kind = select_optimized_forward(loaded.module, compute_dtype="bfloat16")
+        eager = make_fused_pipeline(
+            None, container.get_preprocess_input_fn(), labels_apply_fn=forward,
+            num_classes=NUM_CLASSES, minpath_tie_parity="fast", device="cuda",
+        )
+        out = serve_artifact(
+            "unet_s2d_bf16", artifact, eager, volume, "fast", "minpath_dp_s2d", export_s
+        )
+    if kind != "s2d" or out["optimized_forward"] != "s2d" or out["launches"] != 3:
+        raise AssertionError(f"bf16 artifact: {kind}, {out['optimized_forward']}, {out['launches']}")
+    return out
+
+
+def phase_bf16_path(rng, seed: int, volume: np.ndarray, unet, deeplab) -> dict:
+    """bfloat16 serving and training at full width: the forwards card vs
+    CPU; ``VolumeSegmenter(compute_dtype="bfloat16")`` through B2 (s2d
+    U-Net) and B1 (folded DeepLabV3+) in both tie modes on the trained
+    weights of the train and DeepLabV3+ paths, each within the reference's
+    bfloat16 budget of its float32 serving; one bfloat16 train step card
+    vs CPU and ``BF16_TRAIN_STEPS`` at batch 8 of 512x1024; the bfloat16
+    export artifact."""
+    from oct_image_segmentation_models_torch.models.deeplabv3plus import fold_batchnorm
+    from oct_image_segmentation_models_torch.ops.s2d_unet import build_s2d_apply
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (unet_container, unet_module), (dl_container, dl_module) = unet, deeplab
+    out = {"forward_check": bf16_forward_card_vs_cpu(rng, seed, unet_module, dl_module)}
+    batch = torch.from_numpy(volume[:BATCH]).pin_memory()
+    served = bf16_serving(
+        "unet", "unet", unet_container, unet_module, volume, "s2d", "minpath_dp_s2d"
+    )
+    forward = build_s2d_apply(unet_module, output="labels_s2d", dtype="bfloat16")
+    x = batch.cuda().to(torch.float32) / 255.0
+    out["unet"] = {**served, **bf16_serving_times(served, forward, x, batch)}
+    volume3 = rgb(volume)
+    batch3 = torch.from_numpy(volume3[:BATCH]).pin_memory()
+    served = bf16_serving(
+        "deeplab", "deeplabv3plus", dl_container, dl_module, volume3, "folded", "minpath_dp"
+    )
+    forward = fold_batchnorm(dl_module, "bfloat16")
+    x = dl_container.get_preprocess_input_fn()(batch3.cuda())
+    out["deeplab"] = {**served, **bf16_serving_times(served, forward, x, batch3)}
+    for name in ("unet", "deeplab"):
+        del out[name]["pipeline"]
+    del forward, x
+    torch.cuda.empty_cache()
+    out["step_check"] = bf16_step_card_vs_cpu(rng, seed)
+    out["train"] = bf16_train(rng, seed)
+    torch.cuda.empty_cache()
+    out["export"] = bf16_export(unet_container, unet_module, volume)
+    out["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -2508,6 +2933,7 @@ def main(argv=None) -> int:
     train = phase_train_path(rng, args.seed)
     deeplab = phase_deeplab_path(rng, args.seed, volume)
     export = phase_export_path(model, args.seed, volume)
+    bf16 = phase_bf16_path(rng, args.seed, volume, train.pop("_trained"), deeplab.pop("_trained"))
     dp = phase_dp_path(rng, model, volume, args.seed)
 
     card = env["card"]
@@ -2665,7 +3091,7 @@ def main(argv=None) -> int:
             "minpath_dp",
             folded["launches"] + predict["launches"] + train["launches"]["minpath_dp"]
             + deeplab["launches"] + sum(dp["two_ranks"]["b1_launches_per_rank"])
-            + export_launches["minpath_dp"],
+            + export_launches["minpath_dp"] + bf16["deeplab"]["launches"],
             parity["max_abs_err"],
             "b1",
             f"{tpu_minpath}:487",
@@ -2674,7 +3100,8 @@ def main(argv=None) -> int:
             "minpath_dp_s2d",
             s2d["launches"] + train["launches"]["minpath_dp_s2d"]
             + sum(dp["two_ranks"]["b2_launches_per_rank"])
-            + export_launches["minpath_dp_s2d"],
+            + export_launches["minpath_dp_s2d"] + bf16["unet"]["launches"]
+            + bf16["export"]["launches"],
             parity_s2d["max_abs_err"],
             "b2",
             f"{tpu_minpath}:533",
@@ -2701,11 +3128,13 @@ def main(argv=None) -> int:
             line["launches_deeplab_path"] = deeplab["launches"]
             line["launches_dp_path_per_rank"] = dp["two_ranks"]["b1_launches_per_rank"]
             line["launches_export_path"] = export_launches["minpath_dp"]
+            line["launches_bf16_path"] = bf16["deeplab"]["launches"]
         if key == "b2":
             line["launches_s2d_path"] = s2d["launches"]
             line["launches_train_path"] = train["launches"]["minpath_dp_s2d"]
             line["launches_dp_path_per_rank"] = dp["two_ranks"]["b2_launches_per_rank"]
             line["launches_export_path"] = export_launches["minpath_dp_s2d"]
+            line["launches_bf16_path"] = bf16["unet"]["launches"] + bf16["export"]["launches"]
             line["transpose_then_b1_ms"] = times["b2_yardstick_fast_ms"]
             line["transpose_then_b1_ms_exact"] = times["b2_yardstick_exact_ms"]
         kernels.append(line)
@@ -2744,6 +3173,7 @@ def main(argv=None) -> int:
             "train_path": train,
             "deeplab_path": deeplab,
             "export_path": export,
+            "bf16_path": bf16,
             "dp_path": dp,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start,
@@ -2757,7 +3187,61 @@ def main(argv=None) -> int:
         f"{two['ranks_wall_s']:.1f} s for both ranks' work, spawn included; the phase "
         f"{dp['phase_s']:.1f} s"
     )
+    bu, bd, bt, bs = bf16["unet"], bf16["deeplab"], bf16["train"], bf16["step_check"]
+    for name, res in (("U-Net s2d (B2)", bu), ("DeepLabV3+ folded (B1)", bd)):
+        busy = res["device_busy_share"]
+        print(
+            f"[{card}] bf16 {name} VolumeSegmenter pipeline batch {BATCH} x {H}x{W}, fast "
+            f"ties: {res['pipeline_ms']:.3f} ms/batch, {res['pipeline_bscans_per_s']:.1f} "
+            f"B-scans/s; forward {res['forward_ms']:.3f} ms, {res['forward_gflop']:.1f} GFLOP, "
+            f"{res['forward_tflops']:.2f} TFLOP/s = {res['forward_share_of_bf16_peak']:.4f} of "
+            f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s dense bf16 (bound "
+            f"{res['forward_bound_ms']:.3f} ms); busy share "
+            + ("not measured" if busy is None else f"{busy:.4f}")
+            + f"; budget agreement {res['budget_agreement']:.6f}, rows MAE "
+            f"{res['budget_rows_mae_px']:.4f} px"
+        )
+        for kname, ms in res["top_kernels_ms_per_batch"]:
+            print(f"  {ms:9.3f} ms/batch  {kname[:100]}")
+    print(
+        f"[{card}] bf16 train step (U-Net, batch {BATCH} x {H}x{W}, start_neurons 32, Adam, "
+        f"focal+Dice): {bt['step_ms']:.3f} ms/step = {bt['bscans_per_s']:.2f} B-scans/s; "
+        f"{bt['gflop_per_step']:.1f} GFLOP/step, {bt['tflops']:.2f} TFLOP/s = "
+        f"{bt['share_of_bf16_peak']:.4f} of dense bf16 (bound {bt['bound_ms']:.3f} ms); split "
+        f"forward with loss and metric {bt['forward_ms']:.3f} ms, backward "
+        f"{bt['backward_ms']:.3f} ms, optimizer {bt['optimizer_ms']:.3f} ms; peak memory "
+        f"{bt['peak_mib']:.1f} MiB; the bf16_path phase {bf16['phase_s']:.1f} s"
+    )
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"bf16": {
+        "unet_s2d_pipeline_ms": bu["pipeline_ms"],
+        "unet_s2d_bscans_per_s": bu["pipeline_bscans_per_s"],
+        "unet_s2d_forward_tflops": bu["forward_tflops"],
+        "unet_s2d_busy_share": bu["device_busy_share"],
+        "unet_budget_agreement": bu["budget_agreement"],
+        "unet_budget_rows_mae_px": bu["budget_rows_mae_px"],
+        "deeplab_folded_pipeline_ms": bd["pipeline_ms"],
+        "deeplab_folded_bscans_per_s": bd["pipeline_bscans_per_s"],
+        "deeplab_folded_forward_tflops": bd["forward_tflops"],
+        "deeplab_folded_busy_share": bd["device_busy_share"],
+        "deeplab_budget_agreement": bd["budget_agreement"],
+        "deeplab_budget_rows_mae_px": bd["budget_rows_mae_px"],
+        "forward_card_vs_cpu": bf16["forward_check"],
+        "b2_launches": bu["launches"],
+        "b1_launches": bd["launches"],
+        "train_step_ms": bt["step_ms"],
+        "train_bscans_per_s": bt["bscans_per_s"],
+        "train_tflops": bt["tflops"],
+        "train_forward_backward_optimizer_ms": [
+            bt["forward_ms"], bt["backward_ms"], bt["optimizer_ms"]
+        ],
+        "train_peak_mib": bt["peak_mib"],
+        "train_loss_first_last_pass": [bt["loss_first_pass"], bt["loss_last_pass"]],
+        "step_check": bs,
+        "export_artifact_ms_per_batch": bf16["export"]["artifact_ms_per_batch"],
+        "export_b2_launches": bf16["export"]["launches"],
+        "phase_s": bf16["phase_s"],
+    }}))
     print(json.dumps({"dp": {
         "world1_ddp_step_ms": w1["ddp_world1_step_ms"],
         "world1_one_device_step_ms": w1["one_device_step_ms"],

@@ -1,5 +1,5 @@
-"""Device resolution, float32 precision and per-device constants for the
-port's entry points."""
+"""Device resolution, compute dtypes, precision contexts and per-device
+constants for the port's entry points."""
 
 from __future__ import annotations
 
@@ -38,6 +38,49 @@ def float32_precision():
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_matmul
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """``dtype`` ("float32", "bfloat16" or the torch dtype) as a torch
+    dtype; any other dtype raises."""
+    name = str(dtype).removeprefix("torch.")
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype!r}")
+    return COMPUTE_DTYPES[name]
+
+
+@contextlib.contextmanager
+def bfloat16_precision():
+    """Run a bfloat16 forward or step as XLA does: bfloat16 convolutions
+    and matmuls accumulate in float32, and the float32 parts (head,
+    softmax, loss) run in full float32 (:func:`float32_precision`).
+
+    ``matmul.allow_bf16_reduced_precision_reduction`` defaults to True,
+    which lets cuBLAS reduce split-K partial sums in bfloat16; it is off
+    inside the context and restored after."""
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        with float32_precision():
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+
+
+def precision(dtype=torch.float32):
+    """The precision context of a forward or step that computes in
+    ``dtype``: :func:`bfloat16_precision` or :func:`float32_precision`."""
+    if compute_dtype(dtype) == torch.bfloat16:
+        return bfloat16_precision()
+    return float32_precision()
+
+
+def module_dtype(module: torch.nn.Module) -> torch.dtype:
+    """The compute dtype of a port module (its ``compute_dtype``)."""
+    return getattr(module, "compute_dtype", torch.float32)
 
 
 class PerDevice:

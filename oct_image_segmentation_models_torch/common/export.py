@@ -31,7 +31,7 @@ from pathlib import Path
 
 import torch
 
-from .._device import float32_precision, resolve_device
+from .._device import precision, resolve_device
 
 EXPORT_FORMAT_VERSION = 1
 PLATFORMS = ("cpu", "cuda")
@@ -222,9 +222,9 @@ class ExportedPipeline:
             images = images.to(torch.uint8)
         images = images.to(self.device, non_blocking=True)
         # The precision switches are process globals that the program does
-        # not hold: the card's program serves in full float32, as eager
-        # serving does.
-        with torch.inference_mode(), float32_precision():
+        # not hold: the card's program serves under the precision context
+        # of its compute dtype, as eager serving does.
+        with torch.inference_mode(), precision(self.metadata.get("compute_dtype", "float32")):
             return self._module(images)
 
 

@@ -18,6 +18,13 @@ A block is Conv (no bias unless asked, He-normal) -> BatchNorm (eps 1e-3)
 ``jax.image.resize(method="bilinear")``; the two agree to float32
 rounding, not bit for bit.
 
+``dtype="bfloat16"`` runs the backbone, DSPP, decoder and both resizes in
+bfloat16 (the parameters stay float32, BatchNorm normalises in float32,
+see :mod:`.unet`); the head and the softmax run in float32. The image
+mean is taken in float32 and rounded once; each resize rounds after each
+of its two axes, as ``jax.image.resize`` on a bfloat16 array contracts
+one axis at a time.
+
 :func:`.unet.fold_batchnorm` (re-exported here) gives the BN-folded
 module, as the JAX ``fold_deeplab_batchnorm_variables``: eps 1.001e-5 in
 the backbone, 1e-3 in the blocks.
@@ -38,10 +45,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._device import PerDevice, resolve_device
+from .._device import PerDevice, compute_dtype, resolve_device
 from .base_model import BaseModel
 from .resnet import ResNet50Backbone
-from .unet import BatchNorm, ConvBlock, fold_batchnorm  # noqa: F401 (re-exported)
+from .unet import BatchNorm, ConvBlock, fold_batchnorm, stack_dtype  # noqa: F401 (re-exported)
 
 DEEPLABV3PLUS_MODEL_NAME = "deeplabv3plus"
 # Caffe-style ImageNet channel means, BGR (keras.applications.resnet50).
@@ -60,7 +67,12 @@ def _block(cin: int, cout: int, kernel: int, use_bn: bool, dilation=1, bias=Fals
 
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """NCHW bilinear resize with half-pixel centres (``jax.image.resize``'s
-    "bilinear" when it upsamples)."""
+    "bilinear" when it upsamples). Below float32 it resizes the width,
+    rounds, then the height, as JAX's einsum contracts a bfloat16 array
+    one axis at a time."""
+    if x.dtype.itemsize >= 4:
+        return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+    x = F.interpolate(x, size=(x.shape[2], w), mode="bilinear", align_corners=False)
     return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
 
 
@@ -78,16 +90,22 @@ class DSPP(nn.Module):
 
     def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
         h, w = x.shape[2], x.shape[3]
-        pooled = self.blocks[0](x.mean(dim=(2, 3), keepdim=True), batch_stats)
+        mean = x.to(torch.promote_types(x.dtype, torch.float32)).mean(dim=(2, 3), keepdim=True)
+        pooled = self.blocks[0](mean.to(x.dtype), batch_stats)
         branches = [resize_bilinear(pooled, h, w)]
         branches += [block(x, batch_stats) for block in self.blocks[1:5]]
         return self.blocks[5](torch.cat(branches, dim=1), batch_stats)
 
 
 class DeeplabV3PlusModule(nn.Module):
-    def __init__(self, input_channels: int, num_classes: int, use_bn: bool = True):
+    def __init__(
+        self, input_channels: int, num_classes: int, use_bn: bool = True, dtype="float32"
+    ):
         super().__init__()
-        self.hparams = dict(input_channels=input_channels, num_classes=num_classes)
+        self.compute_dtype = compute_dtype(dtype)
+        self.hparams = dict(
+            input_channels=input_channels, num_classes=num_classes, dtype=self.compute_dtype
+        )
         self.use_bn = use_bn
         self.resnet50 = ResNet50Backbone(input_channels, use_bn)
         self.dspp = DSPP(FEATURES, use_bn)
@@ -111,12 +129,12 @@ class DeeplabV3PlusModule(nn.Module):
         float32 softmax probabilities; H and W divide by 4."""
         batch_stats = self.training or stats_mode
         h, w = x.shape[1], x.shape[2]
-        x = x.to(self.head.weight.dtype).permute(0, 3, 1, 2)
+        x = x.to(stack_dtype(self)).permute(0, 3, 1, 2)
         tap, low = self.resnet50(x, batch_stats)
         y = resize_bilinear(self.dspp(tap, batch_stats), h // 4, w // 4)
         y = torch.cat([y, self.blocks[0](low, batch_stats)], dim=1)
         y = self.blocks[2](self.blocks[1](y, batch_stats), batch_stats)
-        y = self.head(resize_bilinear(y, h, w))
+        y = self.head(resize_bilinear(y, h, w).to(self.head.weight.dtype))
         return torch.softmax(y, dim=1).permute(0, 2, 3, 1)
 
 
@@ -239,12 +257,7 @@ class DeeplabV3Plus(BaseModel):
         """The DeepLabV3+ module in eval mode on ``device`` (None means
         CUDA), initialised from ``generator`` (a fresh unseeded one if
         None)."""
-        if str(self.dtype) != "float32":
-            raise NotImplementedError(
-                f"dtype={self.dtype!r}: the PyTorch DeepLabV3+ runs float32 "
-                "only (ROADMAP A13)"
-            )
         device = resolve_device(device)
-        module = DeeplabV3PlusModule(self.input_channels, self.num_classes, use_bn)
+        module = DeeplabV3PlusModule(self.input_channels, self.num_classes, use_bn, self.dtype)
         reset_parameters(module, generator or torch.Generator())
         return module.to(device)

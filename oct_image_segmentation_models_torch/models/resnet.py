@@ -15,6 +15,12 @@ The backbone stops at the ``conv4_block6_2_relu`` tap (stride 16, 256
 channels), where DeepLabV3+'s functional model is pruned: the block's
 ``3_conv``/``3_bn`` tail and all of conv5 do not exist. ``forward`` returns
 that tap and the ``conv2_block3_2_relu`` tap (stride 4, 64 channels), NCHW.
+
+The backbone computes in its input's dtype. For a bfloat16 input that is
+the Flax backbone with ``dtype=bfloat16`` as XLA compiles it: each conv
+rounds its output to bfloat16 and adds its bias (:func:`.unet.conv2d`),
+BatchNorm normalises that sum in float32 and rounds once, and the
+residual add and ReLU run in bfloat16. The taps come back in bfloat16.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .unet import BatchNorm
+from .unet import BatchNorm, conv2d
 
 BN_EPS = 1.001e-5
 # (blocks, filters) per stage, Keras ResNet50 through conv4 only.
@@ -57,25 +63,27 @@ class ResNet50Backbone(nn.Module):
         )
         self.add_module(f"{name}_bn", BatchNorm(cout, BN_EPS) if self.use_bn else None)
 
-    def _conv_bn(self, name, x, batch_stats):
-        x = getattr(self, f"{name}_conv")(x)
+    def _conv_bn(self, name, x, batch_stats, dtype):
         bn = getattr(self, f"{name}_bn")
-        return x if bn is None else bn(x, batch_stats)
+        x = conv2d(getattr(self, f"{name}_conv"), x, dtype, bn_follows=bn is not None)
+        return x if bn is None else bn(x, batch_stats).to(dtype)
 
     def forward(self, x: torch.Tensor, batch_stats: bool = False) -> tuple:
-        """NCHW input -> ``(conv4_block6_2_relu, conv2_block3_2_relu)``."""
+        """NCHW input -> ``(conv4_block6_2_relu, conv2_block3_2_relu)``, in
+        the input's dtype."""
+        dtype = x.dtype
         x = F.pad(x, (3, 3, 3, 3))
-        x = F.relu(self._conv_bn("conv1", x, batch_stats))
+        x = F.relu(self._conv_bn("conv1", x, batch_stats, dtype)).to(dtype)
         x = F.pad(x, (1, 1, 1, 1))
         x = F.max_pool2d(x, 3, 2)
         low = None
         for prefix, first in self.layers:
-            shortcut = self._conv_bn(f"{prefix}_0", x, batch_stats) if first else x
-            y = F.relu(self._conv_bn(f"{prefix}_1", x, batch_stats))
-            y = F.relu(self._conv_bn(f"{prefix}_2", y, batch_stats))
+            shortcut = self._conv_bn(f"{prefix}_0", x, batch_stats, dtype) if first else x
+            y = F.relu(self._conv_bn(f"{prefix}_1", x, batch_stats, dtype))
+            y = F.relu(self._conv_bn(f"{prefix}_2", y, batch_stats, dtype))
             if f"{prefix}_2_relu" == LOW_TAP:
                 low = y
             if not hasattr(self, f"{prefix}_3_conv"):  # the pruned last block
                 break
-            x = F.relu(shortcut + self._conv_bn(f"{prefix}_3", y, batch_stats))
+            x = F.relu(shortcut + self._conv_bn(f"{prefix}_3", y, batch_stats, dtype))
         return y, low

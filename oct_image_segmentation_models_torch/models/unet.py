@@ -32,6 +32,16 @@ way round. The dropout mask comes from :func:`dropout_mask` and a
 
 The module's public layout is the JAX one: ``(B, H, W, C)`` input,
 channels-last probabilities out. Inside, it runs NCHW.
+
+``dtype="bfloat16"`` is the JAX module's ``dtype``, as XLA compiles it:
+the parameters stay float32; the input is cast to bfloat16 and each conv
+computes in it (:func:`conv2d`: weights and input cast, the conv's output
+rounded to bfloat16, then the bias added, in float32 where BatchNorm
+follows); BatchNorm takes its statistics and normalises in float32; each
+block's output is rounded once to bfloat16; max-pool, dropout, upsample
+and concat run in bfloat16; the 1x1 head and the softmax run in
+float32. Gradients reach the float32
+parameters through the casts.
 """
 
 from __future__ import annotations
@@ -43,7 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._device import resolve_device
+from .._device import compute_dtype, resolve_device
 from .base_model import BaseModel
 
 UNET_MODEL_NAME = "unet"
@@ -68,11 +78,36 @@ def dropout_mask(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return u < 1.0 - DROPOUT_RATE
 
 
+def conv2d(
+    conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype = None, bn_follows: bool = False
+) -> torch.Tensor:
+    """``conv(x)`` computing in ``dtype`` (None: ``x``'s). Below the
+    weights' precision (a bfloat16 forward of float32 parameters) it is
+    Flax's ``nn.Conv(dtype=)`` as XLA compiles it: ``x`` and the weights
+    cast to ``dtype``, the conv's output rounded to it, then the bias (cast
+    to ``dtype`` too) added and the sum rounded again. With ``bn_follows``
+    the sum stays float32: where BatchNorm promotes it to float32, XLA
+    drops the rounding between (``xla_allow_excess_precision``), and so
+    does the port; BatchNorm's output is rounded by the caller."""
+    dtype = x.dtype if dtype is None else dtype
+    if dtype == conv.weight.dtype:
+        return conv(x.to(dtype))
+    y = conv._conv_forward(x.to(dtype), conv.weight.to(dtype), None)
+    if conv.bias is None:
+        return y
+    bias = conv.bias.to(dtype)[:, None, None]
+    if bn_follows:
+        return y.to(conv.bias.dtype) + bias.to(conv.bias.dtype)
+    return y + bias
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with the Flax formula, eps 1e-3 unless ``eps`` says
     otherwise (see the module docstring for the batch-statistics mode).
     The one BatchNorm of the port: DeepLabV3+'s backbone uses it with the
-    Keras ResNet50's 1.001e-5."""
+    Keras ResNet50's 1.001e-5. A bfloat16 input is promoted to float32 for
+    the statistics and the normalisation (Flax's
+    ``force_float32_reductions``), and the result rounded back once."""
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
@@ -84,8 +119,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
         if batch_stats:
-            mean = x.mean(dim=(0, 2, 3))
-            mean2 = (x * x).mean(dim=(0, 2, 3))
+            xs = x.to(torch.promote_types(x.dtype, self.running_mean.dtype))
+            mean = xs.mean(dim=(0, 2, 3))
+            mean2 = (xs * xs).mean(dim=(0, 2, 3))
             # torch.maximum, not clamp: at var == 0 the gradient splits in
             # two as jnp.maximum's does.
             var = torch.maximum(mean2 - mean * mean, torch.zeros((), device=x.device))
@@ -100,7 +136,7 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean[:, None, None]) * mul[:, None, None]
-        return y + self.bias[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
 
 
 class ConvBlock(nn.Module):
@@ -133,12 +169,15 @@ class ConvBlock(nn.Module):
         self.bn = BatchNorm(features) if use_bn else None
 
     def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
+        """NCHW ``x`` -> the block's output in ``x``'s dtype (a bfloat16
+        block rounds once, after BatchNorm and ReLU)."""
+        dtype = x.dtype
         if self.needs_pad:
             x = F.pad(x, self.pads)
-        x = self.conv(x)
+        x = conv2d(self.conv, x, bn_follows=self.bn is not None)
         if self.bn is not None:
             x = self.bn(x, batch_stats)
-        return F.relu(x)
+        return F.relu(x).to(dtype)
 
 
 class UNetModule(nn.Module):
@@ -152,8 +191,10 @@ class UNetModule(nn.Module):
         enc_kernel: Sequence[int] = (3, 3),
         dec_kernel: Sequence[int] = (2, 2),
         use_bn: bool = True,
+        dtype="float32",
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype(dtype)
         self.hparams = dict(
             input_channels=input_channels,
             num_classes=num_classes,
@@ -162,6 +203,7 @@ class UNetModule(nn.Module):
             conv_layers=conv_layers,
             enc_kernel=tuple(enc_kernel),
             dec_kernel=tuple(dec_kernel),
+            dtype=self.compute_dtype,
         )
         self.pool_layers = pool_layers
         self.conv_layers = conv_layers
@@ -199,10 +241,11 @@ class UNetModule(nn.Module):
         """``(B, H, W, C)`` float input -> ``(B, H, W, classes)`` float32
         softmax probabilities. In train mode the dropout mask is drawn from
         ``generator`` (a generator on the input's device; None uses the
-        device's default generator). The module computes in its
-        parameters' dtype, float32 unless it was converted."""
+        device's default generator). The conv stack computes in the
+        module's ``dtype`` when it is bfloat16, else in its parameters'
+        dtype, float32 unless it was converted."""
         batch_stats = self.training or stats_mode
-        x = x.to(self.head.weight.dtype).permute(0, 3, 1, 2)
+        x = x.to(stack_dtype(self)).permute(0, 3, 1, 2)
         blocks = iter(self.blocks)
         skips = []
         for _ in range(self.pool_layers):
@@ -214,15 +257,23 @@ class UNetModule(nn.Module):
             x = next(blocks)(x, batch_stats)
         if self.training:
             keep = dropout_mask(x, generator)
-            x = torch.where(keep, x / (1.0 - DROPOUT_RATE), torch.zeros((), device=x.device))
+            x = torch.where(keep, x / (1.0 - DROPOUT_RATE), x.new_zeros(()))
         for level in reversed(range(self.pool_layers)):
             x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
             x = next(blocks)(x, batch_stats)
             x = torch.cat([x, skips[level]], dim=1)
             for _ in range(self.conv_layers):
                 x = next(blocks)(x, batch_stats)
-        x = self.head(x)
+        x = self.head(x.to(self.head.weight.dtype))
         return torch.softmax(x, dim=1).permute(0, 2, 3, 1)
+
+
+def stack_dtype(module: nn.Module) -> torch.dtype:
+    """The dtype a module's conv stack computes in: bfloat16 for a
+    bfloat16 module, else its parameters' dtype."""
+    if module.compute_dtype == torch.bfloat16:
+        return torch.bfloat16
+    return module.head.weight.dtype
 
 
 def reset_parameters(module: UNetModule, generator: torch.Generator) -> None:
@@ -304,10 +355,6 @@ class UNet(BaseModel):
     ) -> UNetModule:
         """The U-Net module in eval mode on ``device`` (None means CUDA),
         initialised from ``generator`` (a fresh unseeded one if None)."""
-        if str(self.dtype) != "float32":
-            raise NotImplementedError(
-                f"dtype={self.dtype!r}: the PyTorch U-Net runs float32 only"
-            )
         device = resolve_device(device)
         module = UNetModule(
             input_channels=self.input_channels,
@@ -318,6 +365,7 @@ class UNet(BaseModel):
             enc_kernel=self.enc_kernel,
             dec_kernel=self.dec_kernel,
             use_bn=use_bn,
+            dtype=self.dtype,
         )
         reset_parameters(module, generator or torch.Generator())
         return module.to(device)
@@ -360,15 +408,18 @@ def fold_batchnorm_variables(state_dict: dict, eps: dict = None) -> dict:
     return folded
 
 
-def fold_batchnorm(module: nn.Module) -> nn.Module:
+def fold_batchnorm(module: nn.Module, dtype=None) -> nn.Module:
     """A BN-folded copy (``use_bn=False``) of ``module``, a
-    :class:`UNetModule` or a DeepLabV3+, on its device: every
-    :class:`BatchNorm` folds into the conv before it with its own eps
-    (:func:`fold_batchnorm_variables`)."""
-    if not module.use_bn:
+    :class:`UNetModule` or a DeepLabV3+, on its device, computing in
+    ``dtype`` (None: the module's own): every :class:`BatchNorm` folds into
+    the conv before it with its own eps (:func:`fold_batchnorm_variables`).
+    The folded weights stay float32; a bfloat16 forward casts them, as
+    JAX's ``jnp.asarray(w, dtype)``."""
+    dtype = module.compute_dtype if dtype is None else compute_dtype(dtype)
+    if not module.use_bn and dtype == module.compute_dtype:
         return module
     eps = {name: m.eps for name, m in module.named_modules() if isinstance(m, BatchNorm)}
     folded_state = fold_batchnorm_variables(module.state_dict(), eps)
-    folded = type(module)(**module.hparams, use_bn=False)
+    folded = type(module)(**{**module.hparams, "dtype": dtype}, use_bn=False)
     folded.load_state_dict(folded_state)
     return folded.to(next(module.parameters()).device)

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from .._device import float32_precision
+from .._device import module_dtype, precision
 from ..models.unet import BN_MOMENTUM
 from ..parallel.mesh import sum_over_world
 
@@ -90,7 +90,8 @@ class BNRefresher:
 
         Returns ``{buffer name: tensor}`` for every ``running_mean`` and
         ``running_var``, as ``parallel.train_step.batch_stats`` gives
-        them. The forwards run in full float32 (``float32_precision``).
+        them, float32 also for a bfloat16 module. The forwards run under
+        the module's precision context (``_device.precision``).
         Raises ValueError on an empty ``batches``."""
         if cross_process and not dist.is_initialized():
             raise ValueError("cross_process=True needs an initialised process group")
@@ -104,7 +105,7 @@ class BNRefresher:
             if params is not None:
                 module.load_state_dict(params)
             total, count = None, 0
-            with float32_precision():
+            with precision(module_dtype(module)):
                 for x in batches:
                     s = self._raw_batch_stats(x, generator)
                     term = {}

@@ -29,7 +29,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .._device import float32_precision, resolve_device
+from .._device import compute_dtype as as_dtype
+from .._device import module_dtype, precision, resolve_device
 from ..models import deeplabv3plus, unet
 from ..parallel.mesh import all_gather_host
 from . import boundary as boundary_ops
@@ -53,22 +54,30 @@ def select_optimized_forward(
     ``labels_apply_fn``; :class:`StagedPipeline` asks for ``"probs"``),
     ``"folded"`` for a DeepLabV3+, or another U-Net with ``fold_unet`` (BN
     folded into the convs), and ``"parity"`` without ``optimize`` or for
-    another model (the module as given). Only float32 is ported, so
-    another ``compute_dtype`` raises (the bfloat16 s2d forward is ROADMAP
-    A13)."""
-    if compute_dtype != "float32":
-        raise ValueError(
-            f"compute_dtype={compute_dtype!r}: the PyTorch forward runs "
-            "float32 only"
-        )
+    another model (the module as given).
+
+    ``compute_dtype="bfloat16"`` runs the s2d forward's or the folded
+    DeepLabV3+'s conv stack in bfloat16 (head and softmax in float32). As
+    in JAX it raises where neither applies (``optimize=False``, or a U-Net
+    the s2d transform does not take: JAX has no bfloat16 folded U-Net),
+    so that a bfloat16 request never runs float32."""
+    dtype = as_dtype(compute_dtype)
     if optimize:
-        s2d_fn, _div = maybe_build_s2d_apply(module, output=s2d_output)
+        s2d_fn, _div = maybe_build_s2d_apply(module, output=s2d_output, dtype=dtype)
         if s2d_fn is not None:
             return s2d_fn, "s2d"
-        if isinstance(module, deeplabv3plus.DeeplabV3PlusModule) or (
-            fold_unet and isinstance(module, unet.UNetModule)
-        ):
+        if isinstance(module, deeplabv3plus.DeeplabV3PlusModule):
+            return unet.fold_batchnorm(module, dtype), "folded"
+        if fold_unet and isinstance(module, unet.UNetModule) and dtype == torch.float32:
             return unet.fold_batchnorm(module), "folded"
+    if dtype != torch.float32:
+        reason = "optimize=False" if not optimize else "the model has no optimized inference variant"
+        raise ValueError(
+            f"compute_dtype={compute_dtype!r} is only honored by the optimized "
+            f"fast paths (s2d U-Net / BN-folded DeepLabV3+), which are "
+            f"unavailable here ({reason}); use compute_dtype='float32' or an "
+            "eligible model with optimize=True"
+        )
     return module, "parity"
 
 
@@ -85,7 +94,8 @@ class StagedPipeline:
     ``optimize``, runs as given, as in JAX, which folds BatchNorm in this
     pipeline only for DeepLabV3+. The graph stage runs the min-path on the
     transposed image maps, which is the CUDA kernel ``minpath_delineate``
-    (B1) on the card.
+    (B1) on the card. In bfloat16 an image whose H or W misses the s2d
+    factor raises instead of taking the float32 module.
     """
 
     def __init__(
@@ -105,6 +115,7 @@ class StagedPipeline:
             module, compute_dtype, optimize, s2d_output="probs", fold_unet=False
         )
         self.kind = kind
+        self._compute_dtype = as_dtype(compute_dtype)
         self._s2d = forward.to(self.device).eval() if kind == "s2d" else None
         self._s2d_div = 2**forward.s2d_levels if kind == "s2d" else 1
         self._module = (module if kind == "s2d" else forward).to(self.device).eval()
@@ -118,11 +129,18 @@ class StagedPipeline:
         probabilities."""
         images = torch.as_tensor(images_u8).to(self.device, non_blocking=True)
         h, w = images.shape[1], images.shape[2]
-        with torch.inference_mode(), float32_precision():
+        s2d = self._s2d is not None and h % self._s2d_div == 0 and w % self._s2d_div == 0
+        if self._s2d is not None and not s2d and self._compute_dtype != torch.float32:
+            # The geometry fallback is the float32 module, as in JAX.
+            raise ValueError(
+                f"compute dtype {self._compute_dtype} requires the s2d fast "
+                f"path, but image dims {h}x{w} do not divide its factor "
+                f"{self._s2d_div}; pad the input or use compute_dtype='float32'"
+            )
+        forward = self._s2d if s2d else self._module
+        with torch.inference_mode(), precision(module_dtype(forward)):
             x = self._preprocess(images.to(torch.float32))
-            if self._s2d is not None and h % self._s2d_div == 0 and w % self._s2d_div == 0:
-                return self._s2d(x)
-            return self._module(x)
+            return forward(x)
 
     def convert(self, probs: torch.Tensor):
         """probs -> ``(argmax labels u8 (B, H, W), one-hot class-first
@@ -244,7 +262,8 @@ def make_fused_pipeline(
     s2d layout, from ``build_s2d_apply(..., output="labels_s2d")``), it
     replaces ``module``: the boundary maps and the min-path stay in the
     s2d domain. It needs ``num_classes``. The forward that runs is moved
-    to ``device``. The chain is :class:`FusedPipeline`.
+    to ``device``, and runs in its own compute dtype under that dtype's
+    precision context. The chain is :class:`FusedPipeline`.
 
     ``mesh`` (a :class:`..parallel.mesh.Mesh`) makes the pipeline
     data-parallel: every rank calls it with the same batch, which must
@@ -272,9 +291,11 @@ def make_fused_pipeline(
         return_maps=return_maps,
     )
 
+    forward_precision = module_dtype(forward)
+
     def pipeline(images):
         images = torch.as_tensor(images).to(device, non_blocking=True)
-        with torch.inference_mode(), float32_precision():
+        with torch.inference_mode(), precision(forward_precision):
             return chain(images)
 
     if mesh is None:

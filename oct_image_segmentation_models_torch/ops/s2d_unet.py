@@ -23,6 +23,14 @@ The forward (:class:`S2DUNet`) runs the convs through PyTorch in NCHW
 with the channel order ``(q_h, q_w, c)``; its public inputs and outputs
 keep the JAX layouts. An eligible encoder level can run through the
 fused encoder-pair kernel (:mod:`.s2d_enc_pair`, ``fuse_enc_pairs=True``).
+
+``dtype=bfloat16`` is JAX's ``build_s2d_apply(dtype=)``: the kernels are
+transformed in float32/float64 as always and cast to bfloat16 once; the
+input is cast to bfloat16 before the first s2d; each conv rounds, then
+its bias is added in bfloat16 (two roundings, as JAX's conv + ``bias4``);
+ReLU, the edge masks and the phase max-pool run in bfloat16; the head and
+the softmax/argmax run in float32. The fused encoder pair accumulates in
+float32 only, so a bfloat16 forward never takes it (as JAX).
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._device import float32_precision
+from .._device import compute_dtype, precision
 from ..models.unet import UNetModule, _same_pads, fold_batchnorm_variables
 
 __all__ = [
@@ -51,8 +59,9 @@ __all__ = [
 ]
 
 
-def maybe_build_s2d_apply(module, output: str = "probs"):
-    """The s2d forward of ``module`` when it qualifies.
+def maybe_build_s2d_apply(module, output: str = "probs", dtype="float32"):
+    """The s2d forward of ``module`` when it qualifies, computing its conv
+    stack in ``dtype``.
 
     The model must be a :class:`UNetModule` with an eligible config.
     Returns ``(S2DUNet | None, spatial_divisor)``: inputs whose H/W are not
@@ -70,7 +79,7 @@ def maybe_build_s2d_apply(module, output: str = "probs"):
     )
     if levels == 0:
         return None, 1
-    return build_s2d_apply(module, s2d_levels=levels, output=output), 2**levels
+    return build_s2d_apply(module, s2d_levels=levels, output=output, dtype=dtype), 2**levels
 
 
 # ---------------------------------------------------------------------------
@@ -309,10 +318,14 @@ def _conv_pads(nh, nw, e_h, e_w, n_out_h, n_out_w):
 
 
 def _conv_nchw(x, w_oihw, bias, pads):
-    """Asymmetric zero padding, then a VALID conv + bias."""
+    """Asymmetric zero padding, then a VALID conv + bias. Below float32 the
+    bias is added after the rounded conv, as JAX's ``conv + bias4``; in
+    float32 it is fused into the conv."""
     if any(pads):
         x = F.pad(x, pads)
-    return F.conv2d(x, w_oihw, bias)
+    if x.dtype.itemsize >= 4:
+        return F.conv2d(x, w_oihw, bias)
+    return F.conv2d(x, w_oihw) + bias[:, None, None]
 
 
 def _phase_max_pool_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -359,7 +372,8 @@ class S2DUNet(nn.Module):
     ``output`` "probs" (B, H, W, K) float32 softmax, "labels" (B, H, W)
     uint8 argmax, or "labels_s2d" (B, H/2, W/2, 4) uint8 argmax in s2d
     layout (channel order (q_h, q_w)). Softmax and argmax run per phase
-    group; argmax takes the first class on ties.
+    group; argmax takes the first class on ties. The conv stack computes
+    in ``dtype`` (the module docstring says how for bfloat16).
     """
 
     def __init__(
@@ -368,6 +382,7 @@ class S2DUNet(nn.Module):
         s2d_levels: Optional[int] = None,
         output: str = "probs",
         fuse_enc_pairs="auto",
+        dtype="float32",
     ):
         super().__init__()
         if output not in ("probs", "labels", "labels_s2d"):
@@ -385,6 +400,7 @@ class S2DUNet(nn.Module):
             # Off, as in JAX: the fused kernel is a choice made by measuring.
             fuse_enc_pairs = False
         self.output = output
+        self.compute_dtype = compute_dtype(dtype)
         self.s2d_levels = s2d_levels
         self.pool_layers = pool_layers
         self.fuse_enc_pairs = bool(fuse_enc_pairs)
@@ -413,18 +429,23 @@ class S2DUNet(nn.Module):
 
         self._n = 0
 
-        def add(w_hwio, b, kind, **geom):
-            """Register the conv's weights as buffers and return its plan."""
+        def add(w_hwio, b, kind, dtype=self.compute_dtype, **geom):
+            """Register the conv's weights as buffers, float32 then cast
+            to ``dtype`` (as JAX's ``jnp.asarray(W2, dtype)``), and return
+            its plan."""
             name = f"c{self._n}"
             self._n += 1
             self.register_buffer(
                 f"{name}_w",
                 torch.from_numpy(np.ascontiguousarray(w_hwio))
                 .to(torch.float32)
+                .to(dtype)
                 .permute(3, 2, 0, 1)
                 .contiguous(),
             )
-            self.register_buffer(f"{name}_b", torch.from_numpy(np.asarray(b, np.float32)))
+            self.register_buffer(
+                f"{name}_b", torch.from_numpy(np.asarray(b, np.float32)).to(dtype)
+            )
             return _Conv(kind, name, **geom)
 
         def t(w, b, a_in, a_out, in_perm=None):
@@ -498,13 +519,16 @@ class S2DUNet(nn.Module):
             hk = np.zeros((1, 1, 4 * C, 4 * K), np.float64)
             for q in range(4):
                 hk[0, 0, q * C : (q + 1) * C, q * K : (q + 1) * K] = head_k[0, 0]
-            self.head = add(hk, np.tile(head_b, 4), "s2d", e_h=(0, 0), e_w=(0, 0))
+            self.head = add(
+                hk, np.tile(head_b, 4), "s2d", dtype=torch.float32, e_h=(0, 0), e_w=(0, 0)
+            )
         else:
-            self.head = add(head_k, head_b, "plain", kernel=(1, 1))
+            self.head = add(head_k, head_b, "plain", dtype=torch.float32, kernel=(1, 1))
 
-        # The fused kernel takes its weights HWIO (2, 2, 4Cin, 4C).
+        # The fused kernel takes its weights HWIO (2, 2, 4Cin, 4C). It
+        # accumulates in float32 only.
         self._fused_levels = {}
-        if self.fuse_enc_pairs:
+        if self.fuse_enc_pairs and self.compute_dtype == torch.float32:
             for L, level in enumerate(self.enc_plan):
                 if self._pair_shape_ok(level):
                     names = []
@@ -564,11 +588,11 @@ class S2DUNet(nn.Module):
         return y2.permute(0, 3, 1, 2), pooled.permute(0, 3, 1, 2).contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        with float32_precision():
+        with precision(self.compute_dtype):
             return self._forward(x)
 
     def _forward(self, x):
-        x = x.to(torch.float32).permute(0, 3, 1, 2)
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         skips = []
         for L in range(self.pool_layers):
             if L < self.s2d_levels:
@@ -615,7 +639,7 @@ class S2DUNet(nn.Module):
                 x_form = "scalar"
 
         w, b = self._w(self.head)
-        y = F.conv2d(x, w, b)
+        y = F.conv2d(x.to(torch.float32), w, b)
         if x_form == "s2d":
             # Per-phase class groups (B, 4, K, Hb, Wb): softmax and argmax
             # commute with the d2s permutation.
@@ -643,12 +667,18 @@ def build_s2d_apply(
     s2d_levels: Optional[int] = None,
     output: str = "probs",
     fuse_enc_pairs="auto",
+    dtype="float32",
 ) -> S2DUNet:
     """The s2d forward of ``module`` (BN folded first when it has BN), in
-    eval mode on the module's device. ``s2d_levels`` defaults to
-    :func:`s2d_eligible_levels`; 0 runs every level as plain convs.
-    ``fuse_enc_pairs=True`` runs each eligible encoder level through the
-    fused encoder-pair kernel; ``"auto"`` means off, as in JAX."""
+    eval mode on the module's device, its conv stack computing in
+    ``dtype``. ``s2d_levels`` defaults to :func:`s2d_eligible_levels`; 0
+    runs every level as plain convs. ``fuse_enc_pairs=True`` runs each
+    eligible encoder level through the fused encoder-pair kernel (float32
+    only); ``"auto"`` means off, as in JAX."""
     return S2DUNet(
-        module, s2d_levels=s2d_levels, output=output, fuse_enc_pairs=fuse_enc_pairs
+        module,
+        s2d_levels=s2d_levels,
+        output=output,
+        fuse_enc_pairs=fuse_enc_pairs,
+        dtype=dtype,
     ).eval()

@@ -10,9 +10,11 @@ package's ``parallel/train_step.py``.
   metric are 0-d tensors on the device, never read back inside the step.
 - :func:`make_eval_step` returns ``eval_step(state, images, labels) ->
   (loss, metric)``, the eval-mode forward.
-- Both steps run their convolutions and matmuls in full float32
-  (:func:`.._device.float32_precision`, the backward included), whatever
-  the caller's TF32 settings.
+- Both steps run under the module's precision context
+  (:func:`.._device.precision`, the backward included), whatever the
+  caller's TF32 settings: full float32, or for a bfloat16 module a
+  bfloat16 conv stack that accumulates in float32 with the head, the loss
+  and the metric in float32.
 - The optimizers compute optax 0.2.6's update rules (the JAX package's),
   with the Keras defaults the JAX package maps onto them (epsilon 1e-7,
   learning rate 1e-3, SGD's 0.01, RMSprop's ``rho``). ``torch.optim``'s
@@ -48,7 +50,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .._device import float32_precision
+from .._device import compute_dtype, module_dtype, precision
 from ..ops.bn_refresh import _stat_buffers
 from . import mesh as mesh_lib
 
@@ -122,6 +124,7 @@ def make_train_step(
     to time the step's split, e.g. by recording a CUDA event."""
     replica = _resolve_impl(mesh, impl) == "replica"
     forward = module
+    step_dtype = module_dtype(module)
     stats = list(_stat_buffers(module).values())
     if replica:
         from torch.nn.parallel import DistributedDataParallel
@@ -134,7 +137,7 @@ def make_train_step(
 
     def train_step(state: TrainState, images, labels, generator, choices=None, *, on_phase=None):
         mark = on_phase or (lambda name: None)
-        with float32_precision():
+        with precision(step_dtype):
             forward.train()
             if input_transform is not None:
                 images, labels = input_transform(generator, images, labels, choices)
@@ -168,14 +171,15 @@ def make_eval_step(
     impl: str = "auto",
 ) -> Callable:
     """Returns ``eval_step(state, images, labels) -> (loss, metric)``, the
-    eval-mode forward (running BatchNorm statistics, no dropout) in full
-    float32; over a mesh, on each rank's rows, with the world's mean loss
+    eval-mode forward (running BatchNorm statistics, no dropout) under the
+    module's precision context; over a mesh, on each rank's rows, with the world's mean loss
     and metric."""
     replica = _resolve_impl(mesh, impl) == "replica"
+    step_dtype = module_dtype(module)
 
     def eval_step(state: TrainState, images, labels):
         module.eval()
-        with torch.no_grad(), float32_precision():
+        with torch.no_grad(), precision(step_dtype):
             out = module(images)
             loss, metric = loss_fn(labels, out), metric_fn(labels, out)
             if replica:
@@ -211,17 +215,29 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1) - np.float32(decay) ** np.float32(count))
 
 
+def _decayed(slots, decay):
+    """``decay * t`` per tensor, in the tensor's dtype. A bfloat16 slot
+    (optax's ``mu_dtype``, ``accumulator_dtype``) is multiplied by
+    ``decay`` rounded to bfloat16 and the product rounded to it, as JAX
+    takes a weak-typed Python scalar into a bfloat16 product; then it
+    promotes to float32 in the sum with the float32 gradient."""
+    if all(t.dtype == torch.float32 for t in slots):
+        return torch._foreach_mul(slots, decay)
+    factor = {d: torch.tensor(decay, dtype=d).item() for d in {t.dtype for t in slots}}
+    return [t * factor[t.dtype] for t in slots]
+
+
 def _moment(grads, moments, decay, order):
     """``(1 - decay) * g**order + decay * m`` per tensor."""
     g = torch._foreach_mul(grads, grads) if order == 2 else grads
     return torch._foreach_add(
-        torch._foreach_mul(g, _f32(1 - decay)), torch._foreach_mul(moments, decay)
+        torch._foreach_mul(g, _f32(1 - decay)), _decayed(moments, decay)
     )
 
 
 def _trace(updates, traces, decay, nesterov):
     """optax ``trace``: ``t' = g + decay * t``; returns (updates, t')."""
-    new = torch._foreach_add(updates, torch._foreach_mul(traces, decay))
+    new = torch._foreach_add(updates, _decayed(traces, decay))
     if nesterov:
         return torch._foreach_add(updates, torch._foreach_mul(new, decay)), new
     return new, new
@@ -303,6 +319,8 @@ def _adamax(h, params, grads, st, count):
     return torch._foreach_div(mu_hat, st["nu"])
 
 
+# rule -> the state slot whose dtype a hyper-parameter sets
+_SLOT_DTYPES = {"adam": ("mu", "mu_dtype"), "sgd": ("trace", "accumulator_dtype")}
 # rule -> (update function, {state slot: initial value key or constant})
 _RULES = {
     "adam": (_adam, {"mu": 0.0, "nu": 0.0}),
@@ -319,7 +337,9 @@ class OptaxRule(torch.optim.Optimizer):
     nadam, adamw), ``sgd``, ``rmsprop``, ``adagrad``, ``adamax``), the
     optax state kept per parameter. ``learning_rate`` may be a schedule
     ``count -> rate``, called with the update count before this step, as
-    optax's ``scale_by_schedule`` does."""
+    optax's ``scale_by_schedule`` does. Adam's ``mu_dtype`` and SGD's
+    ``accumulator_dtype`` store that slot in bfloat16, as optax does: the
+    update runs in float32 and the slot is rounded when it is stored."""
 
     def __init__(self, params, rule: str, learning_rate, **hyper):
         if rule not in _RULES:
@@ -328,10 +348,26 @@ class OptaxRule(torch.optim.Optimizer):
 
     def _init_state(self, group, p):
         state = {"count": 0}
+        typed_slot, dtype_key = _SLOT_DTYPES.get(group["rule"], (None, None))
         for slot, init in _RULES[group["rule"]][1].items():
             value = group[init] if isinstance(init, str) else init
-            state[slot] = torch.full_like(p, value, memory_format=torch.preserve_format)
+            dtype = group.get(dtype_key) if slot == typed_slot else None
+            state[slot] = torch.full_like(
+                p, value, dtype=dtype, memory_format=torch.preserve_format
+            )
         return state
+
+    def load_state_dict(self, state_dict):
+        """As ``torch.optim.Optimizer``'s, which casts every slot to its
+        parameter's dtype; a bfloat16 slot is cast back."""
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:
+            slot, dtype_key = _SLOT_DTYPES.get(group["rule"], (None, None))
+            if group.get(dtype_key) is None:
+                continue
+            for p in group["params"]:
+                if slot in self.state.get(p, {}):
+                    self.state[p][slot] = self.state[p][slot].to(group[dtype_key])
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -365,7 +401,7 @@ class OptaxRule(torch.optim.Optimizer):
             for i, s in enumerate(states):
                 s["count"] = count + 1
                 for slot, values in slots.items():
-                    s[slot] = values[i]
+                    s[slot] = values[i].to(s[slot].dtype)
         return loss
 
 
@@ -375,13 +411,19 @@ def _reject(**unsupported) -> None:
             raise NotImplementedError(f"{name}={value!r} is not supported by the port")
 
 
+def _slot_dtype(dtype):
+    """A slot dtype as optax takes it ("bfloat16", a torch dtype, ...);
+    None keeps the parameter's float32."""
+    return None if dtype is None else compute_dtype(dtype)
+
+
 def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, mu_dtype=None,
          *, nesterov=False):
     """optax.adam; returns ``params -> Optimizer``."""
-    _reject(mu_dtype=mu_dtype)
     return functools.partial(
         OptaxRule, rule="adam", learning_rate=learning_rate, b1=b1, b2=b2, eps=eps,
         eps_root=eps_root, nesterov=nesterov, weight_decay=None,
+        mu_dtype=_slot_dtype(mu_dtype),
     )
 
 
@@ -392,19 +434,19 @@ def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, mu_dtype=None
           weight_decay=1e-4, mask=None, *, nesterov=False):
     """optax.adamw (decay added to the Adam update before the learning
     rate); returns ``params -> Optimizer``."""
-    _reject(mu_dtype=mu_dtype, mask=mask)
+    _reject(mask=mask)
     return functools.partial(
         OptaxRule, rule="adam", learning_rate=learning_rate, b1=b1, b2=b2, eps=eps,
         eps_root=eps_root, nesterov=nesterov, weight_decay=weight_decay,
+        mu_dtype=_slot_dtype(mu_dtype),
     )
 
 
 def sgd(learning_rate, momentum=None, nesterov=False, accumulator_dtype=None):
     """optax.sgd; returns ``params -> Optimizer``."""
-    _reject(accumulator_dtype=accumulator_dtype)
     return functools.partial(
         OptaxRule, rule="sgd", learning_rate=learning_rate, momentum=momentum,
-        nesterov=nesterov,
+        nesterov=nesterov, accumulator_dtype=_slot_dtype(accumulator_dtype),
     )
 
 

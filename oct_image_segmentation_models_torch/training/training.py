@@ -162,7 +162,11 @@ def _state_arrays(state, best: dict, es_best: dict) -> tuple:
     for index, slots in state.optimizer.state_dict()["state"].items():
         for slot, value in slots.items():
             if torch.is_tensor(value):
-                arrays[f"optimizer/{index}/{slot}"] = value.cpu().numpy()
+                # numpy has no bfloat16: a bfloat16 slot is kept as its exact
+                # float32 values, and the optimizer rounds it back on load.
+                arrays[f"optimizer/{index}/{slot}"] = value.cpu().to(
+                    torch.promote_types(value.dtype, torch.float32)
+                ).numpy()
             else:
                 scalars.setdefault(str(index), {})[slot] = value
     for prefix, snap in (("best", best), ("es_best", es_best)):

@@ -681,3 +681,69 @@ def test_exported_pipeline_on_the_card_matches_eager(cuda, tmp_path):
                 assert delineate_cuda_s2d.launches == before + 1
             for a, b in zip(got, eager(torch.from_numpy(images))):
                 assert a.device == b.device and torch.equal(a, b)
+
+
+def test_bf16_train_step_never_waits_for_the_host(cuda):
+    """A warm bfloat16 train step with Adam's bfloat16 first moment makes
+    no synchronising CUDA call either."""
+    from oct_image_segmentation_models_torch.models import get_model_class
+    from oct_image_segmentation_models_torch.ops import losses, metrics
+    from oct_image_segmentation_models_torch.parallel import train_step as ts
+
+    c = 3
+    module = get_model_class("unet")(
+        input_channels=1, num_classes=c, image_height=32, image_width=64,
+        start_neurons=4, pool_layers=2, dtype="bfloat16",
+    ).build_model(generator=torch.Generator().manual_seed(0), device=cuda)
+    step = ts.make_train_step(
+        module, losses.focal_dice_loss(num_classes=c), metrics.dice_coef_macro(True, c)
+    )
+    state = ts.create_train_state(module, ts.build_optimizer("adam", {"mu_dtype": "bfloat16"}))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand((3, 32, 64, 1), device=cuda)
+    y = torch.randint(0, c, (3, 32, 64, 1), device=cuda)
+    step(state, x, y, gen)  # first use: the optimizer state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, loss, _ = step(state, x, y, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(loss))
+    assert all(s["mu"].dtype == torch.bfloat16 for s in state.optimizer.state.values())
+    assert all(p.dtype == torch.float32 for p in module.parameters())
+
+
+@pytest.mark.parametrize("model", ["unet", "deeplabv3plus"])
+def test_bf16_forward_on_the_card_matches_the_cpu(cuda, model):
+    """The bfloat16 s2d U-Net and folded DeepLabV3+ forwards on the card
+    against the CPU's, same weights: probabilities within 5e-2 (each side
+    rounds every conv's output to bfloat16 from float32 sums taken in
+    another order), argmax equal on >= 99% of the pixels."""
+    from oct_image_segmentation_models_torch.models import get_model_class
+    from oct_image_segmentation_models_torch.ops.inference import select_optimized_forward
+
+    h, w = 64, 128
+    kw = dict(start_neurons=8, pool_layers=3) if model == "unet" else {}
+    channels = 1 if model == "unet" else 3
+    container = get_model_class(model)(
+        input_channels=channels, num_classes=4, image_height=h, image_width=w, **kw
+    )
+    card = container.build_model(generator=torch.Generator().manual_seed(1), device=cuda)
+    output = dict(s2d_output="probs")
+    fwd_card, kind = select_optimized_forward(card, compute_dtype="bfloat16", **output)
+    fwd_cpu, _ = select_optimized_forward(
+        copy.deepcopy(card).cpu(), compute_dtype="bfloat16", **output
+    )
+    assert kind == ("s2d" if model == "unet" else "folded")
+    rng = np.random.default_rng(2)
+    images = rng.integers(0, 256, (2, h, w, channels)).astype(np.float32)
+    x = torch.from_numpy(np.asarray(container.get_preprocess_input_fn()(images)))
+    from oct_image_segmentation_models_torch._device import precision
+
+    with torch.inference_mode(), precision(torch.bfloat16):
+        got = fwd_card(x.to(cuda)).cpu()
+        want = fwd_cpu(x)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 5e-2
+    assert float((got.argmax(-1) == want.argmax(-1)).float().mean()) >= 0.99

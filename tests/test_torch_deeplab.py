@@ -395,8 +395,13 @@ def test_config_round_trip_and_unported_options(extra):
     assert get_model_class("deeplabv3plus")(**pc.get_config()).get_config() == pc.get_config()
     assert pc.spatial_divisor == jc.spatial_divisor == 4
     if "dtype" in extra:
-        with pytest.raises(NotImplementedError, match="A13"):
-            pc.build_model(device="cpu")
+        # float32 parameters, a bfloat16 conv stack, a float32 head
+        module = pc.build_model(device="cpu")
+        assert module.compute_dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in module.parameters())
+        with torch.no_grad():
+            out = module(torch.zeros(1, 48, 64, 3))
+        assert out.dtype == torch.float32 and out.shape == (1, 48, 64, C)
     elif extra:
         # The Keras ResNet50 import is ported: the container builds, and
         # the named file is read when the weights are applied.

@@ -206,8 +206,8 @@ def test_input_validation(checkpoints, tmp_path):
         art(_images("unet", 1, 0))
     with pytest.raises(ValueError, match="lowered for input shape"):
         art(np.zeros((2, 32, 24, 1), np.uint8))
-    # compute_dtype is honoured by the optimized forwards only, and the
-    # port runs float32 alone (bfloat16 is still to come)
+    # compute_dtype is honoured by the optimized forwards only: bfloat16
+    # without them raises, as in JAX
     with pytest.raises(ValueError, match="compute_dtype"):
         export_inference_pipeline(
             checkpoints["unet"], tmp_path / "bf16.pt2", optimize=False,

@@ -174,8 +174,12 @@ def test_selector_and_labels_fn_rejections():
     forward, kind = select_optimized_forward(odd)
     assert kind == "folded" and not forward.use_bn
     assert select_optimized_forward(odd, optimize=False) == (odd, "parity")
-    with pytest.raises(ValueError, match="float32"):
-        select_optimized_forward(module, compute_dtype="bfloat16")
+    # bfloat16 takes the s2d forward; where it has no fast path it raises,
+    # as in JAX, which has no bfloat16 folded U-Net.
+    labels_bf16, kind = select_optimized_forward(module, compute_dtype="bfloat16")
+    assert kind == "s2d" and labels_bf16.compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="no optimized inference variant"):
+        select_optimized_forward(odd, compute_dtype="bfloat16")
 
 
 def test_streaming_golden():
@@ -206,8 +210,16 @@ def test_streaming_rejects_bad_input():
         VolumeSegmenter(loaded, config, batch_size=4, mesh=Mesh(1, 3, 0, torch.device("cpu")))
     with pytest.raises(ValueError, match="batch_size"):
         VolumeSegmenter(loaded, config, batch_size=0, device="cpu")
-    with pytest.raises(ValueError, match="float32"):
-        VolumeSegmenter(loaded, config, compute_dtype="bfloat16", device="cpu")
+    # bfloat16 serves through the s2d forward; a U-Net the s2d transform
+    # does not take has no bfloat16 path and raises, as in JAX.
+    assert VolumeSegmenter(loaded, config, compute_dtype="bfloat16", device="cpu").kind == "s2d"
+    odd_config = {**config, "conv_layers": 1}
+    odd = get_model_class("unet")(**odd_config).build_model(device="cpu")
+    with pytest.raises(ValueError, match="compute_dtype='bfloat16'"):
+        VolumeSegmenter(
+            LoadedModel("unet", odd, odd_config), odd_config, compute_dtype="bfloat16",
+            device="cpu",
+        )
     # Without graph search there are labels and no rows.
     labels, rows = VolumeSegmenter(
         loaded, config, batch_size=4, with_graph_search=False, device="cpu"

@@ -129,12 +129,19 @@ def test_fallback_and_optimize_off_reach_the_module_as_jax_does():
 
 
 def test_non_float32_dtype_raises():
+    """bfloat16 runs the s2d forward; where it would fall back to the
+    float32 module (an image that misses the s2d factor) it raises, as in
+    JAX (``test_torch_bf16.py`` holds the probabilities against JAX's)."""
     _, _, _, container, module = _models()
+    pipeline = StagedPipeline(
+        module, container.get_preprocess_input_fn(), compute_dtype="bfloat16",
+        device="cpu",
+    )
+    assert pipeline.kind == "s2d" and pipeline._s2d.compute_dtype == torch.bfloat16
+    probs = pipeline.predict_probs(np.zeros((1, H, W, 1), np.uint8))
+    assert probs.dtype == torch.float32 and probs.shape == (1, H, W, C)
     with pytest.raises(ValueError, match="float32"):
-        StagedPipeline(
-            module, container.get_preprocess_input_fn(), compute_dtype="bfloat16",
-            device="cpu",
-        )
+        pipeline.predict_probs(np.zeros((1, H + 4, W, 1), np.uint8))
 
 
 def test_numpy_utils_match_jax():

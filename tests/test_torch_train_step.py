@@ -517,8 +517,16 @@ def test_build_optimizer_callable_and_unknown():
     assert tts.resolved_optimizer_config(tts.adam, {"x": 1}) == {"x": 1}
     with pytest.raises(ValueError, match="Unknown optimizer"):
         tts.build_optimizer("lamb", {})
-    with pytest.raises(NotImplementedError):
-        tts.build_optimizer("adam", {"mu_dtype": "bfloat16"})
+    # optax's low-precision first moment (test_torch_bf16_training.py holds
+    # its trajectory against optax's)
+    param = torch.nn.Parameter(torch.ones(2))
+    opt = tts.build_optimizer("adam", {"mu_dtype": "bfloat16"})([param])
+    param.grad = torch.full((2,), 0.5)
+    opt.step()
+    assert opt.state[param]["mu"].dtype == torch.bfloat16
+    assert opt.state[param]["nu"].dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="mask"):
+        tts.build_optimizer("adamw", {"mask": lambda p: p})
 
 
 @pytest.mark.parametrize("deterministic", [True, False])
