@@ -56,6 +56,23 @@ Phases, each of which raises on failure:
      with var > 0. The trained weights are then served through the folded
      path (B1) and the s2d path (B2) on held-out B-scans, rows against the
      plain min-path, and their dice printed;
+   - the s2d training path (``s2d_train_path``, ``ops/s2d_train.py``), run
+     after the train path: one float64 step of ``S2DTrainForward`` on the
+     card at batch 2 of 128x256 against one parity step from the same
+     weights and dropout mask (a float64 cross-entropy; loss within
+     ``S2D_LOSS_RTOL``, every gradient within ``S2D_GRAD_TOL`` of its
+     tensor's max, statistics within ``S2D_STAT_ATOL``); the eval-mode s2d
+     forward against the parity forward (``S2D_EVAL64_ATOL`` in float64,
+     ``PROB_ATOL`` in float32);
+     ``S2D_TRAIN_STEPS`` float32 steps of the s2d forward through
+     ``make_train_step`` at batch 8 of 512x1024 (the loss must fall); the
+     s2d and the parity step timed in turns from the same state (ms,
+     split by ``on_phase``, GFLOP, peak memory); precise BN through
+     ``BNRefresher(S2DTrainForward)``; the trained weights served through
+     ``VolumeSegmenter``'s s2d default in both tie modes, rows against
+     the plain min-path, B2 launched and no other kernel in the phase;
+     ``S2D_BF16_STEPS`` bfloat16 s2d steps and as many bfloat16 parity
+     steps, timed;
    - the data-parallel path (``parallel/``), after ``torch.cuda.empty_cache()``:
      first a world of one over NCCL in this process, which runs the
      per-replica step (``impl="shard_map"``, DDP) at full width for 3 Adam
@@ -74,8 +91,14 @@ Phases, each of which raises on failure:
      the 20-B-scan volume through ``VolumeSegmenter(mesh=)`` (s2d, B2) and
      the folded ``make_fused_pipeline(mesh=)`` (B1) in both tie modes, the
      gathered labels and rows equal on every rank to the one-rank paths
-     at the ranks' per-call batch of 4, bit for bit. Each rank counts its
-     own kernel launches.
+     at the ranks' per-call batch of 4, bit for bit. The same ranks run
+     ``impl="spmd"``, the one-device step on the global batch: one float64
+     step at 128x256, local batch 2, against the one-device step on the
+     4 rows (the ``S2D_*`` bounds), one float32 step at full width, local
+     batch 4, against the one-device step on the 8 rows (loss and
+     statistics within ``DP_SPMD_RTOL``), both ranks' states bit-equal,
+     then ``DP_TIMED`` spmd steps timed (two ranks share one card over
+     gloo: no scaling number). Each rank counts its own kernel launches.
    - the DeepLabV3+ path (``deeplab_path``), run before the data-parallel
      path, on DeepLabV3+ (the ResNet50 backbone to conv4, DSPP, decoder,
      4 classes) with seeded random weights and the gray B-scans repeated
@@ -150,6 +173,7 @@ tests (``tests/test_torch_predict_evaluate.py``,
 HDF5: directory checkpoints and the ``torch.export`` artifact need none.
 
 It prints one ``{"bf16": {...}}`` line with the bfloat16 path's results,
+one ``{"s2d_train": {...}}`` line with the s2d training path's,
 one ``{"dp": {...}}`` line with the data-parallel path's results, one
 ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -1302,6 +1326,336 @@ def phase_train_path(rng, seed: int) -> dict:
     return out
 
 
+# --- the space-to-depth training path --------------------------------------
+
+S2D_TRAIN_STEPS = 30
+S2D_TIMED = 5  # steps per timed run, s2d and parity in turns
+S2D_TIMED_RUNS = 2
+S2D_BF16_STEPS = 8
+# s2d against parity in float64 (one step, the same weights and dropout
+# mask, a float64 cross-entropy): the transform is exact algebra, so only
+# rounding parts them; float64 keeps flipped ReLU gates out of the check.
+# Gradients per tensor within S2D_GRAD_TOL of its max (the pre-BN conv
+# biases, whose exact gradient is 0, of the largest gradient's).
+S2D_LOSS_RTOL = 1e-10
+S2D_GRAD_TOL = 1e-9
+S2D_STAT_ATOL = 1e-10
+# The eval-mode s2d training forward against the parity forward at full
+# width: in float64 within S2D_EVAL64_ATOL (the same function); in float32
+# within PROB_ATOL (two float32 forwards summed in another order: 3.0e-5
+# on the card, where each sits 5.1e-5 and 3.7e-5 off its float64 forward).
+S2D_EVAL64_ATOL = 1e-10
+
+
+def xent64(labels, probs):
+    """Cross-entropy in the probabilities' dtype: the registry's losses
+    compute in float32, whose rounding a float64 check would read."""
+    onehot = torch.nn.functional.one_hot(labels[..., 0].long(), probs.shape[-1])
+    return -(onehot * torch.log(probs)).sum(-1).mean()
+
+
+def step64(forward, module, x, y, seed: int, mesh=None, impl: str = "auto"):
+    """One Adam step of ``forward`` (over ``module``'s parameters) with
+    :func:`xent64`: ``(loss, gradients, running statistics, state)`` on the
+    CPU. The dropout generator is seeded with ``seed``."""
+    from oct_image_segmentation_models_torch.parallel.train_step import (
+        build_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+
+    state = create_train_state(module, build_optimizer("adam", {}), mesh)
+    step = make_train_step(forward, xent64, xent64, mesh, impl)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    _, loss, _ = step(state, x, y, gen)
+    grads = {k: p.grad.detach().cpu() for k, p in module.named_parameters()}
+    sd = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+    return float(loss), grads, {k: v for k, v in sd.items() if "running" in k}, sd
+
+
+def compare64(got, want) -> dict:
+    """Two float64 steps (``step64``'s loss, gradients, statistics):
+    the loss's relative error, each gradient's error over its scale, the
+    statistics' largest error."""
+    loss_rel = abs(got[0] - want[0]) / abs(want[0])
+    largest = max(float(g.abs().max()) for g in want[1].values())
+    worst, worst_key = 0.0, None
+    for k, g in want[1].items():
+        scale = largest if _pre_bn_bias(k) else float(g.abs().max())
+        err = float((got[1][k] - g).abs().max()) / scale
+        if err >= worst:
+            worst, worst_key = err, k
+    stat = max(float((got[2][k] - v).abs().max()) for k, v in want[2].items())
+    return {"loss_rel": loss_rel, "grad_worst": worst, "grad_worst_tensor": worst_key,
+            "stat_max_abs": stat}
+
+
+def check64(res: dict, what: str) -> None:
+    if not (
+        res["loss_rel"] <= S2D_LOSS_RTOL and res["grad_worst"] <= S2D_GRAD_TOL
+        and res["stat_max_abs"] <= S2D_STAT_ATOL
+    ):
+        raise AssertionError(f"{what}: float64 check failed: {res}")
+
+
+def check_size_unet(seed: int, device="cuda"):
+    """The bench's U-Net at the check size (``CHECK_H`` x ``CHECK_W``)."""
+    from oct_image_segmentation_models_torch.models import get_model_class
+
+    container = get_model_class("unet")(
+        input_channels=1, num_classes=NUM_CLASSES, image_height=CHECK_H,
+        image_width=CHECK_W, start_neurons=32, pool_layers=4, conv_layers=2,
+    )
+    return container.build_model(generator=torch.Generator().manual_seed(seed), device=device)
+
+
+def timed_steps(step, state, batches, generator) -> float:
+    """ms per step of ``len(batches)`` steps back to back (CUDA events)."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for x, y in batches:
+        step(state, x, y, generator)
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / len(batches)
+
+
+def step_split(step, state, batches, generator) -> dict:
+    """The median ms of each phase of the step ("forward" with the loss
+    and metric, "backward", "optimizer"), from events the step's
+    ``on_phase`` hook records."""
+    phases = ("forward", "backward", "optimizer")
+    splits = {name: [] for name in phases}
+    for x, y in batches:
+        ev = {name: torch.cuda.Event(enable_timing=True) for name in ("start",) + phases}
+        ev["start"].record()
+        step(state, x, y, generator, on_phase=lambda name: ev[name].record())
+        ev["optimizer"].synchronize()
+        for a, b in zip(("start",) + phases, phases):
+            splits[b].append(ev[a].elapsed_time(ev[b]))
+    return {f"{name}_ms": statistics.median(v) for name, v in splits.items()}
+
+
+def phase_s2d_train_path(rng, seed: int) -> dict:
+    """The s2d training forward (``ops/s2d_train.py``) at full width: the
+    float64 check against the parity step, the eval forward against the
+    parity forward, ``S2D_TRAIN_STEPS`` float32 steps through
+    ``make_train_step`` and a precise-BN pass through
+    ``BNRefresher(S2DTrainForward)``, the trained weights served through
+    ``VolumeSegmenter``'s s2d default (B2, both tie modes; no other kernel
+    launched in the phase), the s2d and parity steps timed in turns, and
+    ``S2D_BF16_STEPS`` bfloat16 s2d steps and as many bfloat16 parity
+    steps, timed."""
+    from oct_image_segmentation_models_torch.common.data_generator import DataGenerator
+    from oct_image_segmentation_models_torch.common.model_io import LoadedModel
+    from oct_image_segmentation_models_torch.models import get_model_class
+    from oct_image_segmentation_models_torch.ops.bn_refresh import BNRefresher
+    from oct_image_segmentation_models_torch.ops.s2d_train import (
+        S2DTrainForward,
+        maybe_build_s2d_train,
+    )
+    from oct_image_segmentation_models_torch.parallel.train_step import load_batch_stats
+    from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_counts()
+    out = {}
+
+    # float64: one s2d step against one parity step on the card.
+    images, labels = layered_dataset(rng, CHECK_BATCH, CHECK_H, CHECK_W, NUM_CLASSES)
+    x64 = torch.from_numpy(images.astype(np.float64) / 255.0).cuda()
+    y64 = torch.from_numpy(labels).cuda()
+    base64 = check_size_unet(seed + 7).double()
+    runs = {}
+    for name in ("parity", "s2d"):
+        module = copy.deepcopy(base64)
+        forward = S2DTrainForward(module) if name == "s2d" else module
+        runs[name] = step64(forward, module, x64, y64, seed)
+    out["float64_check"] = compare64(runs["s2d"], runs["parity"])
+    del base64, runs
+    print(
+        f"s2d train path: float64 s2d step vs parity step (batch {CHECK_BATCH} x "
+        f"{CHECK_H}x{CHECK_W}, start_neurons 32, on the card): loss rel "
+        f"{out['float64_check']['loss_rel']:.2e} (tolerance {S2D_LOSS_RTOL:g}), gradients "
+        f"worst {out['float64_check']['grad_worst']:.2e} of the tensor's max "
+        f"({out['float64_check']['grad_worst_tensor']}; tolerance {S2D_GRAD_TOL:g}), BN "
+        f"statistics max |d| {out['float64_check']['stat_max_abs']:.2e} (tolerance "
+        f"{S2D_STAT_ATOL:g})"
+    )
+    check64(out["float64_check"], "s2d against parity")
+
+    container, module = build_unet(seed + 8)
+    config = container.get_config()
+    forward = maybe_build_s2d_train(module, config, H, W)
+    if forward is None or forward.s2d_levels != 2:
+        raise AssertionError("the bench's U-Net is not s2d-eligible at full width")
+    preprocess = container.get_preprocess_input_fn()
+    vx = torch.from_numpy(layered_bscans(rng, 2, H, W, NUM_CLASSES).astype(np.float32) / 255.0)
+    probs = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.float64):
+            parity = module if dtype == torch.float32 else copy.deepcopy(module).to(dtype)
+            for name, fn in (("parity", parity), ("s2d", S2DTrainForward(parity))):
+                probs[name, dtype] = fn.eval()(vx.cuda().to(dtype)).double()
+            del parity
+
+    def gap(a, b):
+        return float((probs[a] - probs[b]).abs().max())
+
+    f32, f64 = torch.float32, torch.float64
+    out["eval_max_abs_err"] = gap(("s2d", f32), ("parity", f32))
+    out["eval64_max_abs_err"] = gap(("s2d", f64), ("parity", f64))
+    out["eval_off_float64"] = {n: gap((n, f32), (n, f64)) for n in ("s2d", "parity")}
+    del probs
+    print(
+        f"s2d train path: eval-mode s2d forward vs parity forward (2 x {H}x{W}): float32 max "
+        f"|d| {out['eval_max_abs_err']:.2e} (tolerance {PROB_ATOL:g}), float64 "
+        f"{out['eval64_max_abs_err']:.2e} (tolerance {S2D_EVAL64_ATOL:g}); each float32 "
+        f"forward off its float64 forward: s2d {out['eval_off_float64']['s2d']:.2e}, parity "
+        f"{out['eval_off_float64']['parity']:.2e}"
+    )
+    if not (out["eval_max_abs_err"] <= PROB_ATOL and out["eval64_max_abs_err"] <= S2D_EVAL64_ATOL):
+        raise AssertionError(
+            f"s2d eval forward off the parity forward: {out['eval_max_abs_err']}, "
+            f"float64 {out['eval64_max_abs_err']}"
+        )
+
+    # float32 training through make_train_step.
+    train_x, train_y = layered_dataset(rng, TRAIN_IMAGES, H, W, NUM_CLASSES)
+    test_x, test_y = layered_dataset(rng, BATCH, H, W, NUM_CLASSES)
+    gen = DataGenerator(train_x, train_y, BATCH, [], "none", (), False, preprocess, seed=seed)
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+
+    def upload(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().cuda(non_blocking=True)
+
+    fixed = []
+    while len(fixed) < S2D_TIMED:
+        fixed += [(upload(bx), upload(by)) for bx, by in gen]
+        gen.on_epoch_end()
+    fixed = fixed[:S2D_TIMED]
+    state, step, _ = _train_objects(forward, seed)
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(S2D_TRAIN_STEPS):
+        x, y = fixed[i % S2D_TIMED]
+        _, loss, _ = step(state, x, y, generator)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu().numpy()
+    out["losses_first_last"] = (float(losses[0]), float(losses[-1]))
+    print(
+        f"s2d train path: {S2D_TRAIN_STEPS} float32 s2d steps at batch {BATCH} x {H}x{W}: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} ({out['train_s']:.1f} s)"
+    )
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"s2d training loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    # The s2d step and the parity step, timed in turns from the same state.
+    parity_module = copy.deepcopy(module)
+    p_state, p_step, _ = _train_objects(parity_module, seed)
+    ms = {"s2d": [], "parity": []}
+    peak = {}
+    for _ in range(S2D_TIMED_RUNS):
+        for name, (st, fn) in (("s2d", (state, step)), ("parity", (p_state, p_step))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms[name].append(timed_steps(fn, st, fixed, generator))
+            peak[name] = torch.cuda.max_memory_allocated() / 2**20
+    for name, (st, fn) in (("s2d", (state, step)), ("parity", (p_state, p_step))):
+        out[f"{name}_step_ms"] = min(ms[name])
+        out[f"{name}_step_ms_runs"] = ms[name]
+        out[f"{name}_peak_mib"] = peak[name]
+        out.update({f"{name}_{k}": v for k, v in step_split(fn, st, fixed[:3], generator).items()})
+        flop = train_flop(fn, st, *fixed[0], generator)
+        out[f"{name}_gflop_per_step"] = flop / 1e9
+        out[f"{name}_tflops"] = flop / 1e9 / out[f"{name}_step_ms"]
+    del parity_module, p_state, p_step
+    for name in ("s2d", "parity"):
+        print(
+            f"s2d train path: {name} step {out[f'{name}_step_ms']:.3f} ms (runs "
+            f"{', '.join(f'{v:.3f}' for v in ms[name])}; forward with loss "
+            f"{out[f'{name}_forward_ms']:.3f}, backward {out[f'{name}_backward_ms']:.3f}, "
+            f"optimizer {out[f'{name}_optimizer_ms']:.3f} ms), "
+            f"{out[f'{name}_gflop_per_step']:.1f} GFLOP, {out[f'{name}_tflops']:.2f} TFLOP/s, "
+            f"peak {out[f'{name}_peak_mib']:.1f} MiB"
+        )
+
+    # Precise BN through the s2d forward, then serving (B2).
+    stat_batches = [
+        upload(preprocess(train_x[i:i + BATCH].astype(np.float32)))
+        for i in range(0, TRAIN_IMAGES, BATCH)
+    ]
+    precise = BNRefresher(forward)(
+        None, stat_batches, generator=torch.Generator(device="cuda").manual_seed(seed)
+    )
+    bad = [k for k, v in precise.items() if not torch.isfinite(v).all()]
+    bad += [k for k, v in precise.items() if k.endswith("running_var") and not (v > 0).all()]
+    if bad:
+        raise AssertionError(f"s2d precise BN statistics not finite or var <= 0: {bad[:4]}")
+    load_batch_stats(module, precise)
+    module.eval()
+    truth = test_y[..., 0]
+    for tie in ("fast", "exact"):
+        segmenter = VolumeSegmenter(
+            LoadedModel("unet", module, config), config, batch_size=BATCH,
+            minpath_tie_parity=tie, device="cuda",
+        )
+        if segmenter.kind != "s2d":
+            raise AssertionError(f"VolumeSegmenter chose {segmenter.kind} for the s2d-trained U-Net")
+        lab, rows = segmenter.segment_volume(test_x)
+        check_rows(tie, lab, rows)
+        out[f"served_dice_{tie}"] = float(np.mean([
+            2 * ((lab == c) & (truth == c)).sum() / ((lab == c).sum() + (truth == c).sum())
+            for c in range(NUM_CLASSES)
+        ]))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    out["launches"] = counts["minpath_dp_s2d"]
+    print(
+        f"s2d train path: trained weights (precise BN through the s2d forward) served on "
+        f"{BATCH} held-out B-scans through VolumeSegmenter's s2d default, dice_coef_macro "
+        f"{out['served_dice_fast']:.4f}; launches {counts}"
+    )
+    if counts["minpath_dp_s2d"] < 1 or counts["minpath_dp"] or counts["s2d_enc_pair"]:
+        raise AssertionError(f"the s2d train path launched {counts}")
+    del state, step, forward, module, fixed, stat_batches
+    torch.cuda.empty_cache()
+
+    # bfloat16 s2d steps, and the bfloat16 parity step timed beside them.
+    held = [
+        (upload(preprocess(train_x[i:i + BATCH].astype(np.float32))), upload(train_y[i:i + BATCH]))
+        for i in range(0, TRAIN_IMAGES, BATCH)
+    ]
+    batches = [held[i % len(held)] for i in range(S2D_BF16_STEPS)]
+    for name in ("s2d", "parity"):
+        bf16 = get_model_class("unet")(**{**config, "dtype": "bfloat16"}).build_model(
+            generator=torch.Generator().manual_seed(seed + 9), device="cuda"
+        )
+        b_state, b_step, _ = _train_objects(S2DTrainForward(bf16) if name == "s2d" else bf16, seed)
+        b_losses = [b_step(b_state, x, y, generator)[1] for x, y in batches[:2]]
+        out[f"bf16_{name}_step_ms"] = timed_steps(b_step, b_state, batches[2:], generator)
+        out[f"bf16_{name}_gflop_per_step"] = train_flop(b_step, b_state, *batches[0], generator) / 1e9
+        b_losses = torch.stack(b_losses).float().cpu().numpy()
+        if not np.isfinite(b_losses).all():
+            raise AssertionError(f"bfloat16 {name} losses not finite: {b_losses}")
+        out[f"bf16_{name}_losses_first"] = b_losses.tolist()
+        del bf16, b_state, b_step
+    del batches, held
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(
+        f"s2d train path: {S2D_BF16_STEPS} bfloat16 steps at batch {BATCH} x {H}x{W}, ms/step "
+        f"over the last {S2D_BF16_STEPS - 2}: s2d {out['bf16_s2d_step_ms']:.3f} "
+        f"({out['bf16_s2d_gflop_per_step']:.1f} GFLOP), parity {out['bf16_parity_step_ms']:.3f} "
+        f"({out['bf16_parity_gflop_per_step']:.1f} GFLOP); the phase {out['phase_s']:.1f} s"
+    )
+    return out
+
+
 # --- the DeepLabV3+ path ---------------------------------------------------
 
 DL_CHECK_H, DL_CHECK_W, DL_CHECK_BATCH = 64, 128, 2
@@ -2292,6 +2646,12 @@ DP_LOSS_RTOL = 1e-5
 # The cross-rank refresher against the one-process one: the same per-batch
 # statistics summed in another order.
 DP_REFRESH_RTOL, DP_REFRESH_ATOL = 1e-5, 1e-6
+# impl="spmd" over the two ranks against the one-device step on the global
+# batch: in float64 the S2D_* bounds; in float32 the loss and each running
+# statistic's tensor within this share of the one-device step's (sums over
+# the world in another order). The metric thresholds the probabilities at
+# 0.5, so a pixel on the threshold moves it: printed, not gated.
+DP_SPMD_RTOL = 1e-5
 
 
 def _pre_bn_bias(key: str) -> bool:
@@ -2462,6 +2822,34 @@ def dp_rank(rank: int, workdir: str, seed: int) -> None:
         }
         del train_module, state, step
 
+        # impl="spmd": the one-device step on the global batch (every
+        # rank's randoms from one stream), in float64 at the check size,
+        # then in float32 at full width, then timed.
+        rows64 = mesh.world_rows(inputs["x64"].shape[0])
+        m64 = check_size_unet(seed + 10).double()
+        out["spmd64"] = step64(
+            m64, m64, inputs["x64"][rows64].cuda(), inputs["y64"][rows64].cuda(), seed + 11,
+            mesh, "spmd",
+        )
+        del m64
+        spmd_module = copy.deepcopy(module)
+        state, step, _ = _train_objects(spmd_module, seed, mesh=mesh, impl="spmd")
+        gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+        rows = mesh.world_rows(BATCH)
+        x, y = inputs["x"][rows].cuda(), inputs["y"][rows].cuda()
+        _, loss, metric = step(state, x, y, gen)
+        out["spmd32"] = (
+            float(loss), float(metric),
+            {k: v.cpu() for k, v in spmd_module.state_dict().items()},
+        )
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED):
+            step(state, x, y, gen)
+        torch.cuda.synchronize()
+        out["spmd_step_ms"] = (time.perf_counter() - t0) / DP_TIMED * 1e3
+        del spmd_module, state, step
+
         # The cross-rank precise-BN refresher on this rank's batches.
         refresher = BNRefresher(module, deterministic=True)
         batches = [b.cuda() for b in inputs["stat_x"][rank]]
@@ -2513,10 +2901,13 @@ def dp_two_ranks(rng, model, volume: np.ndarray, seed: int) -> dict:
     stat_x = torch.from_numpy(stat_x.astype(np.float32) / 255.0).reshape(
         DP_RANKS, DP_STAT_BATCHES, DP_LOCAL_BATCH, H, W, 1
     )
+    images64, labels64 = layered_dataset(rng, DP_RANKS * CHECK_BATCH, CHECK_H, CHECK_W, NUM_CLASSES)
     inputs = {
         "weights": {k: v.cpu() for k, v in base.state_dict().items()},
         "x": torch.from_numpy(images.astype(np.float32) / 255.0),
         "y": torch.from_numpy(labels),
+        "x64": torch.from_numpy(images64.astype(np.float64) / 255.0),
+        "y64": torch.from_numpy(labels64),
         "stat_x": stat_x,
         "volume": torch.from_numpy(volume),
     }
@@ -2601,6 +2992,49 @@ def dp_two_ranks(rng, model, volume: np.ndarray, seed: int) -> dict:
         raise AssertionError(f"two-rank loss/metric off the per-replica mean: {loss_err}, {metric_err}")
     if grad_err > 1 or zero_grad > ZERO_GRAD_SHARE * gmax or stat_err > DP_STAT_ATOL:
         raise AssertionError(f"two-rank step off the per-replica definition: {grad_err}, {stat_err}")
+
+    # impl="spmd" against the one-device step on the global batch, from
+    # the same weights and dropout stream; every rank's state bit-equal.
+    for name, index in (("spmd64", 3), ("spmd32", 2)):
+        a, b = ranks[0][name][index], ranks[1][name][index]
+        diff = [k for k in a if not torch.equal(a[k], b[k])]
+        if diff:
+            raise AssertionError(f"{name}: the ranks' states differ in {diff[:4]}")
+    m64 = check_size_unet(seed + 10).double()
+    want64 = step64(m64, m64, inputs["x64"].cuda(), inputs["y64"].cuda(), seed + 11)
+    del m64
+    out["spmd64"] = compare64(ranks[0]["spmd64"], want64)
+    module = copy.deepcopy(base)
+    state, step, _ = _train_objects(module, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    _, loss, metric = step(state, inputs["x"].cuda(), inputs["y"].cuda(), gen)
+    got_loss, got_metric, got_sd = ranks[0]["spmd32"]
+    spmd_loss = abs(got_loss - float(loss)) / abs(float(loss))
+    spmd_metric = abs(got_metric - float(metric)) / max(abs(float(metric)), 1e-12)
+    spmd_stat = max(
+        float((got_sd[k] - v.cpu()).abs().max()) / max(float(v.abs().max()), 1e-12)
+        for k, v in module.state_dict().items() if "running" in k
+    )
+    del module, state, step
+    out.update(
+        spmd32_loss_rel=spmd_loss, spmd32_metric_rel=spmd_metric,
+        spmd32_stat_rel=spmd_stat, spmd_step_ms=[r["spmd_step_ms"] for r in ranks],
+    )
+    print(
+        f"dp spmd over {DP_RANKS} gloo ranks on one card: float64 step (global batch "
+        f"{DP_RANKS * CHECK_BATCH} x {CHECK_H}x{CHECK_W}) vs the one-device step: loss rel "
+        f"{out['spmd64']['loss_rel']:.2e}, gradients worst {out['spmd64']['grad_worst']:.2e} "
+        f"of the tensor's max ({out['spmd64']['grad_worst_tensor']}), statistics max |d| "
+        f"{out['spmd64']['stat_max_abs']:.2e}; float32 step (global batch {BATCH} x {H}x{W}): "
+        f"loss rel {spmd_loss:.2e}, statistics {spmd_stat:.2e} of the tensor's max "
+        f"(tolerance {DP_SPMD_RTOL:g}), the thresholded metric rel {spmd_metric:.2e} (not "
+        f"gated: a pixel at 0.5 flips it); ranks' states "
+        f"bit-equal; {out['spmd_step_ms'][0]:.3f} ms per spmd step on rank 0 (two ranks "
+        f"share one card over gloo: no scaling number)"
+    )
+    check64(out["spmd64"], "spmd against the one-device step")
+    if not (spmd_loss <= DP_SPMD_RTOL and spmd_stat <= DP_SPMD_RTOL):
+        raise AssertionError(f"float32 spmd step off the one-device step: {spmd_loss}, {spmd_stat}")
 
     # The cross-rank refresher against the one-process one over all batches.
     batches = [b.cuda() for b in stat_x.reshape(-1, DP_LOCAL_BATCH, H, W, 1)]
@@ -2931,6 +3365,9 @@ def main(argv=None) -> int:
     times = phase_times(model, s2d, folded, fused, parity_pair["flagship_args"])
     times.update(predict_path_times(predict, volume))
     train = phase_train_path(rng, args.seed)
+    # Its own random stream, so that the phases after it draw the inputs
+    # they drew before it was added.
+    s2d_train = phase_s2d_train_path(np.random.default_rng([args.seed, 10]), args.seed)
     deeplab = phase_deeplab_path(rng, args.seed, volume)
     export = phase_export_path(model, args.seed, volume)
     bf16 = phase_bf16_path(rng, args.seed, volume, train.pop("_trained"), deeplab.pop("_trained"))
@@ -3098,7 +3535,7 @@ def main(argv=None) -> int:
         ),
         (
             "minpath_dp_s2d",
-            s2d["launches"] + train["launches"]["minpath_dp_s2d"]
+            s2d["launches"] + train["launches"]["minpath_dp_s2d"] + s2d_train["launches"]
             + sum(dp["two_ranks"]["b2_launches_per_rank"])
             + export_launches["minpath_dp_s2d"] + bf16["unet"]["launches"]
             + bf16["export"]["launches"],
@@ -3132,6 +3569,7 @@ def main(argv=None) -> int:
         if key == "b2":
             line["launches_s2d_path"] = s2d["launches"]
             line["launches_train_path"] = train["launches"]["minpath_dp_s2d"]
+            line["launches_s2d_train_path"] = s2d_train["launches"]
             line["launches_dp_path_per_rank"] = dp["two_ranks"]["b2_launches_per_rank"]
             line["launches_export_path"] = export_launches["minpath_dp_s2d"]
             line["launches_bf16_path"] = bf16["unet"]["launches"] + bf16["export"]["launches"]
@@ -3171,6 +3609,7 @@ def main(argv=None) -> int:
             },
             "times": times,
             "train_path": train,
+            "s2d_train_path": s2d_train,
             "deeplab_path": deeplab,
             "export_path": export,
             "bf16_path": bf16,
@@ -3212,6 +3651,16 @@ def main(argv=None) -> int:
         f"{bt['backward_ms']:.3f} ms, optimizer {bt['optimizer_ms']:.3f} ms; peak memory "
         f"{bt['peak_mib']:.1f} MiB; the bf16_path phase {bf16['phase_s']:.1f} s"
     )
+    st = s2d_train
+    print(
+        f"[{card}] s2d train step (batch {BATCH} x {H}x{W}, start_neurons 32, float32, TF32 "
+        f"off, Adam, focal+Dice): {st['s2d_step_ms']:.3f} ms/step against the parity step's "
+        f"{st['parity_step_ms']:.3f} ms in the same run; {st['s2d_gflop_per_step']:.1f} against "
+        f"{st['parity_gflop_per_step']:.1f} GFLOP/step; peak {st['s2d_peak_mib']:.1f} against "
+        f"{st['parity_peak_mib']:.1f} MiB; bf16 s2d step {st['bf16_s2d_step_ms']:.3f} ms "
+        f"against the bf16 parity step's {st['bf16_parity_step_ms']:.3f} ms; the phase "
+        f"{st['phase_s']:.1f} s"
+    )
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"bf16": {
         "unet_s2d_pipeline_ms": bu["pipeline_ms"],
@@ -3242,6 +3691,18 @@ def main(argv=None) -> int:
         "export_b2_launches": bf16["export"]["launches"],
         "phase_s": bf16["phase_s"],
     }}))
+    print(json.dumps({"s2d_train": {
+        k: st[k] for k in (
+            "float64_check", "eval_max_abs_err", "eval64_max_abs_err", "eval_off_float64",
+            "losses_first_last", "s2d_step_ms",
+            "parity_step_ms", "s2d_step_ms_runs", "parity_step_ms_runs", "s2d_forward_ms",
+            "s2d_backward_ms", "s2d_optimizer_ms", "parity_forward_ms", "parity_backward_ms",
+            "parity_optimizer_ms", "s2d_gflop_per_step", "parity_gflop_per_step",
+            "s2d_peak_mib", "parity_peak_mib", "bf16_s2d_step_ms", "bf16_parity_step_ms",
+            "bf16_s2d_gflop_per_step", "bf16_parity_gflop_per_step", "served_dice_fast",
+            "launches", "phase_s",
+        )
+    }}))
     print(json.dumps({"dp": {
         "world1_ddp_step_ms": w1["ddp_world1_step_ms"],
         "world1_one_device_step_ms": w1["one_device_step_ms"],
@@ -3257,6 +3718,11 @@ def main(argv=None) -> int:
         "b1_launches_per_rank": two["b1_launches_per_rank"],
         "b2_launches_per_rank": two["b2_launches_per_rank"],
         "two_rank_wall_s": two["ranks_wall_s"],
+        "spmd64": two["spmd64"],
+        "spmd32_loss_rel": two["spmd32_loss_rel"],
+        "spmd32_metric_rel": two["spmd32_metric_rel"],
+        "spmd32_stat_rel": two["spmd32_stat_rel"],
+        "spmd_step_ms_per_rank": two["spmd_step_ms"],
         "phase_s": dp["phase_s"],
     }}))
     print(json.dumps({"kernels": kernels}))

@@ -25,10 +25,13 @@ Modes, as the JAX module's ``training`` and ``stats_mode`` flags:
 
 Batch statistics follow Flax 0.12: mean and ``var = max(0, E[x^2] -
 E[x]^2)`` over (B, H, W), the biased variance; the running update is
-``0.99 * running + 0.01 * batch`` for both. ``nn.BatchNorm2d`` is not used:
-its running variance is the unbiased one and its momentum is the other
-way round. The dropout mask comes from :func:`dropout_mask` and a
-``torch.Generator`` on the module's device.
+``0.99 * running + 0.01 * batch`` for both. In an spmd train step over
+several ranks the statistics are those of the global batch (the sums
+all-reduced over the world, :func:`batch_moments`). ``nn.BatchNorm2d``
+and ``nn.SyncBatchNorm`` are not used: their running variance is the
+unbiased one and their momentum is the other way round. The dropout mask
+comes from :func:`dropout_mask` and a ``torch.Generator`` on the
+module's device.
 
 The module's public layout is the JAX one: ``(B, H, W, C)`` input,
 channels-last probabilities out. Inside, it runs NCHW.
@@ -54,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import compute_dtype, resolve_device
+from ..parallel import mesh as mesh_lib
 from .base_model import BaseModel
 
 UNET_MODEL_NAME = "unet"
@@ -73,9 +77,29 @@ def _same_pads(kernel: Sequence[int]) -> tuple:
 def dropout_mask(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Keep-mask of the bottleneck Dropout(0.5) for ``x`` (NCHW): True
     where a uniform draw from ``generator`` is below the keep probability,
-    as ``jax.random.bernoulli`` keeps. The one place the mask is drawn."""
-    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    as ``jax.random.bernoulli`` keeps. The one place the mask is drawn; in
+    an spmd step over several ranks it is this rank's rows of the global
+    batch's mask (``parallel.mesh.draw_rows``)."""
+    u = mesh_lib.draw_rows(
+        lambda shape: torch.rand(
+            shape, generator=generator, device=x.device, dtype=torch.float32
+        ),
+        x.shape,
+    )
     return u < 1.0 - DROPOUT_RATE
+
+
+def batch_moments(xs: torch.Tensor, dims: tuple, count: int) -> tuple:
+    """Per-channel ``(E[x], E[x^2])`` of ``xs`` over ``dims``, ``count``
+    elements a channel. In an spmd step over several ranks
+    (``parallel.mesh.global_batch``) the sums and the count cover the
+    world's global batch; elsewhere they are ``mean`` as it always was,
+    so that one device stays bit for bit what it was."""
+    if mesh_lib.global_mesh() is None:
+        return xs.mean(dim=dims), (xs * xs).mean(dim=dims)
+    sums = mesh_lib.all_reduce_sum(torch.stack([xs.sum(dim=dims), (xs * xs).sum(dim=dims)]))
+    n = mesh_lib.global_batch_size(count)
+    return sums[0] / n, sums[1] / n
 
 
 def conv2d(
@@ -120,8 +144,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
         if batch_stats:
             xs = x.to(torch.promote_types(x.dtype, self.running_mean.dtype))
-            mean = xs.mean(dim=(0, 2, 3))
-            mean2 = (xs * xs).mean(dim=(0, 2, 3))
+            mean, mean2 = batch_moments(xs, (0, 2, 3), xs.numel() // xs.shape[1])
             # torch.maximum, not clamp: at var == 0 the gradient splits in
             # two as jnp.maximum's does.
             var = torch.maximum(mean2 - mean * mean, torch.zeros((), device=x.device))

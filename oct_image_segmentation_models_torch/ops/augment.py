@@ -4,14 +4,19 @@
 The same transforms as the host ones in :mod:`..common.augmentation`, on
 ``(B, H, W, C)`` images in [0, 1] on the card; labels ride along untouched
 except for flips. Noise is drawn from an explicit ``torch.Generator`` on
-the images' device, so it follows the train step's generator stream.
+the images' device, so it follows the train step's generator stream; in
+an spmd step over several ranks each rank draws the global batch's values
+and keeps its rows (``parallel.mesh.draw_rows``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+
+from ..parallel import mesh as mesh_lib
 
 
 def _flip_axis(flip_type: str) -> int:
@@ -31,9 +36,10 @@ def flip(images, labels, flip_type: str = "left-right"):
 
 
 def _noise(generator, images, mean, variance):
-    return mean + math.sqrt(variance) * torch.randn(
-        images.shape, generator=generator, device=images.device, dtype=images.dtype
+    draw = functools.partial(
+        torch.randn, generator=generator, device=images.device, dtype=images.dtype
     )
+    return mean + math.sqrt(variance) * mesh_lib.draw_rows(draw, images.shape)
 
 
 def add_gaussian_noise(generator, images, mean: float = 0.0, variance: float = 0.01):
@@ -51,9 +57,8 @@ def add_speckle_noise(generator, images, mean: float = 0.0, variance: float = 0.
 def random_flip(generator, images, labels, flip_type: str = "left-right", p=0.5):
     """Flip each sample independently with probability ``p``."""
     axis = _flip_axis(flip_type)
-    coins = torch.rand(
-        (images.shape[0],), generator=generator, device=images.device
-    ) < p
+    draw = functools.partial(torch.rand, generator=generator, device=images.device)
+    coins = mesh_lib.draw_rows(draw, (images.shape[0],)) < p
     sel_i = coins.reshape((-1,) + (1,) * (images.ndim - 1))
     sel_l = coins.reshape((-1,) + (1,) * (labels.ndim - 1))
     images = torch.where(sel_i, torch.flip(images, (axis,)), images)

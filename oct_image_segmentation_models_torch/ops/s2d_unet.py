@@ -17,7 +17,9 @@ With ``conv_layers`` even, max-pool is a max over the phase channels and
 the decoder's nearest-neighbour upsample is folded into its conv kernel.
 
 The weight transform is plain numpy, ported line for line from the JAX
-module so that the transformed kernels are bit-equal to JAX's. It reads
+module so that the transformed kernels are bit-equal to JAX's;
+:func:`transform_kernel_torch` is its differentiable twin for the s2d
+training forward (:mod:`.s2d_train`). It reads
 the BN-folded weights of the port's :class:`..models.unet.UNetModule`.
 The forward (:class:`S2DUNet`) runs the convs through PyTorch in NCHW
 with the channel order ``(q_h, q_w, c)``; its public inputs and outputs
@@ -56,6 +58,7 @@ __all__ = [
     "s2d",
     "s2d_eligible_levels",
     "transform_kernel",
+    "transform_kernel_torch",
 ]
 
 
@@ -151,6 +154,22 @@ def transform_kernel(w: np.ndarray, a_in: int, a_out: int):
     W2 = np.transpose(W2, (0, 1, 2, 3, 6, 4, 5, 7))
     Eh, Ew = KI.shape[:2]
     return W2.reshape(Eh, Ew, 4 * C, 4 * N), e_h, e_w
+
+
+def transform_kernel_torch(w: torch.Tensor, maps) -> torch.Tensor:
+    """Differentiable version of :func:`transform_kernel` (JAX's
+    ``transform_kernel_jnp``) in PyTorch's layout: an OIHW kernel ``w``
+    (N, C, kh, kw) -> the OIHW block kernel (4N, 4C, Eh, Ew), channel
+    layouts (d_h, d_w, n) / (q_h, q_w, c). ``maps`` is
+    :func:`_transform_maps`' ``(KI, KJ, mask)`` as tensors on ``w``'s
+    device. One gather, linear in ``w``: autograd returns the block
+    kernel's gradient to the parity kernel exactly."""
+    KI, KJ, mask = maps[:3]
+    N, C = w.shape[:2]
+    Eh, Ew = KI.shape[:2]
+    # (N, C, Eh, Ew, qh, qw, dh, dw) -> (dh, dw, N, qh, qw, C, Eh, Ew)
+    W2 = w[:, :, KI, KJ] * mask.to(w.dtype)
+    return W2.permute(6, 7, 0, 4, 5, 1, 2, 3).reshape(4 * N, 4 * C, Eh, Ew)
 
 
 def _block_pad(n_in: int, n_out: int, e_rng: tuple[int, int]):
@@ -307,7 +326,8 @@ def _mask_shifted_nchw(y: torch.Tensor) -> torch.Tensor:
     B, C4, nh, nw = y.shape
     m = _shifted_keep(nh, nw, y.device)[:, :, None]  # (2, 2, 1, nh, nw)
     y = y.reshape(B, 2, 2, C4 // 4, nh, nw)
-    return torch.where(m, y, torch.zeros((), dtype=y.dtype)).reshape(B, C4, nh, nw)
+    # The zero on y's device: a host scalar would make the train step wait.
+    return torch.where(m, y, y.new_zeros(())).reshape(B, C4, nh, nw)
 
 
 def _conv_pads(nh, nw, e_h, e_w, n_out_h, n_out_w):

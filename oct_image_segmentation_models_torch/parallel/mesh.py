@@ -26,11 +26,21 @@ rank's card). The process group's backend is
 chosen explicitly (:func:`init_distributed`: NCCL for CUDA, gloo for the
 CPU, unless the caller asks for another); gathers of numpy results go
 over a gloo group, as JAX's ``process_allgather`` is host-level.
+
+The spmd step's global batch (:func:`global_batch`) needs collectives
+with a gradient: :func:`all_reduce_sum` and :func:`gather_rows`, built on
+``dist.all_reduce`` alone in both directions. (The backward of
+``torch.distributed.nn.functional.all_gather`` is a reduce-scatter under
+NCCL and an all-to-all otherwise; gloo has no reduce-scatter, and its
+all-to-all takes no CUDA tensors, while ranks that share a card run gloo
+on CUDA tensors.)
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 from dataclasses import dataclass
 from datetime import timedelta
 
@@ -205,3 +215,108 @@ def broadcast_module(module: torch.nn.Module) -> None:
     with torch.no_grad():
         for t in list(module.parameters()) + list(module.buffers()):
             dist.broadcast(t.data, src=0)
+
+
+# --- the global batch of impl="spmd" over more than one rank ----------------
+#
+# JAX's "spmd" step is the one-device step on the global batch: the
+# concatenation of every rank's rows in rank order. The step enters
+# :func:`global_batch` for the duration of its forward and backward; inside
+# it, every BatchNorm sums its statistics over the world
+# (:func:`sum_over_global_batch`), and the random draws of dropout and the
+# device augmentation draw the global batch's values from a stream that
+# every rank shares and keep this rank's rows (:func:`draw_rows`). The
+# switch is per thread, as ``torch.no_grad`` is: another thread of the
+# process (an input producer) does not see it.
+
+_switch = threading.local()
+
+
+@contextlib.contextmanager
+def global_batch(mesh: Mesh):
+    """Compute on the global batch of ``mesh``'s world while inside (in
+    this thread)."""
+    prev = global_mesh()
+    _switch.mesh = mesh
+    try:
+        yield
+    finally:
+        _switch.mesh = prev
+
+
+def global_mesh():
+    """The mesh whose global batch the current step computes on, or None."""
+    return getattr(_switch, "mesh", None)
+
+
+def _all_reduce(t: torch.Tensor) -> torch.Tensor:
+    out = t.contiguous().clone()
+    dist.all_reduce(out)
+    return out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over every rank; its gradient is the sum of every rank's
+    gradient (each rank's output feeds every rank's loss)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _all_reduce(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows in rank order (``Mesh.world_rows``), by an
+    all-reduce of this rank's rows in a zero buffer; the gradient is the
+    all-reduce of the gradient, this rank's rows of it."""
+
+    @staticmethod
+    def forward(ctx, t, world: int, rank: int):
+        n = t.shape[0]
+        ctx.rows = slice(rank * n, (rank + 1) * n)
+        buf = t.new_zeros((world * n,) + tuple(t.shape[1:]))
+        buf[ctx.rows] = t
+        dist.all_reduce(buf)
+        return buf
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad)[ctx.rows], None, None
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over every rank, differentiable (``dist.all_reduce``
+    in both directions)."""
+    return _AllReduceSum.apply(t)
+
+
+def gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The world's rows of ``t`` concatenated in rank order, differentiable
+    (``dist.all_reduce`` in both directions, so that gloo carries it for
+    CUDA tensors too)."""
+    return _GatherRows.apply(t, mesh.world, mesh.rank)
+
+
+def sum_over_global_batch(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the world inside :func:`global_batch`, else ``t``."""
+    return t if global_mesh() is None else all_reduce_sum(t)
+
+
+def global_batch_size(n: int) -> int:
+    """The size of the global batch whose local part has ``n`` rows."""
+    mesh = global_mesh()
+    return n if mesh is None else n * mesh.world
+
+
+def draw_rows(draw, shape) -> torch.Tensor:
+    """``draw(shape)`` for a batch of ``shape[0]`` rows; inside
+    :func:`global_batch`, the global batch's draw (from the stream every
+    rank shares) and this rank's rows of it."""
+    mesh = global_mesh()
+    if mesh is None:
+        return draw(tuple(shape))
+    n = shape[0] * mesh.world
+    return draw((n,) + tuple(shape[1:]))[mesh.world_rows(n)]

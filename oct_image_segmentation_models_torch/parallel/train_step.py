@@ -35,13 +35,26 @@ as JAX's ``impl`` picks it:
   ``pmean``); each rank draws dropout from its own generator (JAX folds
   the device index into the key). The eval step averages its loss and
   metric likewise.
-- ``"spmd"`` (``"auto"`` on one rank) is the one-device step. On more
-  than one rank JAX computes it on the global batch, BatchNorm statistics
-  and the Dice sums included; that is ROADMAP A9b and raises.
+- ``"spmd"`` (``"auto"`` on one rank) is the one-device step; on more
+  than one rank, as JAX defines it, the one-device step on the global
+  batch, every rank's rows concatenated in rank order. Inside the step
+  (``parallel.mesh.global_batch``) every BatchNorm sums its statistics
+  over the world, and dropout and the device augmentation draw the global
+  batch's randoms from the stream every rank shares (the run's seed on
+  every rank) and keep this rank's rows. The outputs and labels are
+  gathered (``parallel.mesh.gather_rows``), and the loss and the metric
+  are the registry's functions of the global batch, so Dice sums run over
+  every rank's rows. Each rank's gradient then comes back as the world
+  size times its rows' share of the global gradient (the gather's and the
+  statistics' all-reduces sum in the backward), and the mean over the
+  world is the global gradient. Every rank ends a step with equal
+  parameters, statistics and optimizer state. The eval step takes the
+  global batch's loss and metric likewise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
 from dataclasses import dataclass
@@ -54,14 +67,9 @@ from .._device import compute_dtype, module_dtype, precision
 from ..ops.bn_refresh import _stat_buffers
 from . import mesh as mesh_lib
 
-_A9B = (
-    "impl='spmd' on more than one rank (global-batch BatchNorm and Dice sums) "
-    "is not ported to PyTorch yet (ROADMAP A9b); use 'shard_map' or 'auto'"
-)
-
-
 def _resolve_impl(mesh, impl: str) -> str:
-    """"one" (the one-device step) or "replica" (per-replica over ``mesh``)."""
+    """"one" (the one-device step), "global" (the one-device step on the
+    world's global batch) or "replica" (per replica over ``mesh``)."""
     if impl not in ("auto", "spmd", "shard_map"):
         raise ValueError(f"unknown train step impl: {impl}")
     if mesh is None:
@@ -76,9 +84,7 @@ def _resolve_impl(mesh, impl: str) -> str:
     if impl == "auto":
         impl = "spmd" if mesh.world == 1 else "shard_map"
     if impl == "spmd":
-        if mesh.world > 1:
-            raise NotImplementedError(_A9B)
-        return "one"
+        return "one" if mesh.world == 1 else "global"
     return "replica"
 
 
@@ -116,17 +122,20 @@ def make_train_step(
     the generator's per-sample ``choices``. The augmentation draws from
     ``generator`` first, then the dropout mask. ``impl`` and ``mesh`` as
     in the module docstring: over a mesh each rank passes its own rows and
-    generator and gets the world's mean loss and metric.
+    generator, and gets the world's mean loss and metric ("shard_map") or
+    the global batch's ("spmd", where every rank's generator must be in
+    the same state).
 
     The step's keyword ``on_phase(name)``, when given, is called at the end
     of each of its phases, "forward" (the forward, loss and metric),
     "backward" (with the averaging over the world) and "optimizer": a hook
     to time the step's split, e.g. by recording a CUDA event."""
-    replica = _resolve_impl(mesh, impl) == "replica"
+    kind = _resolve_impl(mesh, impl)
     forward = module
     step_dtype = module_dtype(module)
     stats = list(_stat_buffers(module).values())
-    if replica:
+    params = [p for p in module.parameters() if p.requires_grad]
+    if kind == "replica":
         from torch.nn.parallel import DistributedDataParallel
 
         forward = DistributedDataParallel(
@@ -137,11 +146,13 @@ def make_train_step(
 
     def train_step(state: TrainState, images, labels, generator, choices=None, *, on_phase=None):
         mark = on_phase or (lambda name: None)
-        with precision(step_dtype):
+        with precision(step_dtype), _global_batch(kind, mesh):
             forward.train()
             if input_transform is not None:
                 images, labels = input_transform(generator, images, labels, choices)
             out = forward(images, generator=generator)
+            if kind == "global":
+                out, labels = mesh_lib.gather_rows(out, mesh), mesh_lib.gather_rows(labels, mesh)
             loss = loss_fn(labels, out)
             with torch.no_grad():
                 metric = metric_fn(labels, out)
@@ -149,11 +160,18 @@ def make_train_step(
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             loss = loss.detach()
-            if replica:
-                with torch.no_grad():
+            with torch.no_grad():
+                if kind == "replica":
                     *means, loss, metric = mesh_lib.mean_over_world(stats + [loss, metric], mesh)
                     for buf, mean in zip(stats, means):
                         buf.copy_(mean)
+                elif kind == "global":
+                    # Every rank's loss is the global loss, so each rank's
+                    # gradient is the world size times its rows' share:
+                    # the mean over the world is the global gradient.
+                    grads = [p.grad for p in params]
+                    for grad, mean in zip(grads, mesh_lib.mean_over_world(grads, mesh)):
+                        grad.copy_(mean)
             mark("backward")
             state.optimizer.step()
             mark("optimizer")
@@ -161,6 +179,11 @@ def make_train_step(
         return state, loss, metric
 
     return train_step
+
+
+def _global_batch(kind: str, mesh):
+    """The global-batch context of an spmd step over several ranks."""
+    return mesh_lib.global_batch(mesh) if kind == "global" else contextlib.nullcontext()
 
 
 def make_eval_step(
@@ -172,17 +195,20 @@ def make_eval_step(
 ) -> Callable:
     """Returns ``eval_step(state, images, labels) -> (loss, metric)``, the
     eval-mode forward (running BatchNorm statistics, no dropout) under the
-    module's precision context; over a mesh, on each rank's rows, with the world's mean loss
-    and metric."""
-    replica = _resolve_impl(mesh, impl) == "replica"
+    module's precision context; over a mesh, on each rank's rows, with the
+    world's mean loss and metric ("shard_map") or the loss and metric of
+    the global batch ("spmd")."""
+    kind = _resolve_impl(mesh, impl)
     step_dtype = module_dtype(module)
 
     def eval_step(state: TrainState, images, labels):
         module.eval()
         with torch.no_grad(), precision(step_dtype):
             out = module(images)
+            if kind == "global":
+                out, labels = mesh_lib.gather_rows(out, mesh), mesh_lib.gather_rows(labels, mesh)
             loss, metric = loss_fn(labels, out), metric_fn(labels, out)
-            if replica:
+            if kind == "replica":
                 loss, metric = mesh_lib.mean_over_world([loss, metric], mesh)
             return loss, metric
 

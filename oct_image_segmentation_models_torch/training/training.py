@@ -31,8 +31,11 @@ every rank's step generator); with ``profile_dir`` each rank traces its
 first epoch into ``trace_rank{rank}.json``. Without a process group it is
 the one-device run, its batches through the same producer thread.
 
-Not ported: the space-to-depth training forward
-(``train_forward_impl="s2d"``; "auto" trains the plain module).
+``train_step_impl="spmd"`` over several ranks is the one-device step on
+the global batch; every rank's step generator then starts from the run's
+seed. ``train_forward_impl="s2d"`` trains through the space-to-depth
+forward (:mod:`..ops.s2d_train`) and raises ``ValueError`` where JAX
+raises; "auto" and "parity" train the plain module.
 """
 
 from __future__ import annotations
@@ -525,9 +528,9 @@ def _refresh_seed(seed, epoch: Optional[int] = None) -> int:
 
 
 def _rank_seed(seed: int, rank: int, world: int) -> int:
-    """Seed of a rank's step generator (dropout and device augmentation):
-    the run's seed on one rank; one stream per rank on more, as JAX folds
-    the device index into the step's key."""
+    """Seed of a rank's per-replica ("shard_map") step generator (dropout
+    and device augmentation): the run's seed on one rank; one stream per
+    rank on more, as JAX folds the device index into the step's key."""
     if world == 1:
         return seed
     return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
@@ -561,12 +564,6 @@ def train_model(
     world, nodes = (mesh.world, mesh.nodes) if mesh is not None else (1, 1)
     rank = mesh.rank if mesh is not None else 0
     is_main_process = rank == 0
-    if training_params.train_forward_impl == "s2d":
-        raise NotImplementedError(
-            "train_forward_impl='s2d' (the space-to-depth training forward) is not "
-            "ported to PyTorch; 'auto' and 'parity' train the plain module "
-            "(ROADMAP C)"
-        )
     # Tracking (MLflow's network calls included) is rank 0's alone.
     tracker = get_tracker(mlflow_params) if is_main_process else NullTracker()
 
@@ -644,8 +641,13 @@ def train_model(
 
     training_dataset_md5 = utils.md5(training_dataset_path)
     seed = training_params.seed or 0
-    # The step generator: dropout masks and device augmentation noise.
-    generator = torch.Generator(device=device).manual_seed(_rank_seed(seed, rank, world))
+    # The step generator: dropout masks and device augmentation noise. The
+    # spmd step draws the global batch's randoms on every rank from one
+    # stream: the run's seed on every rank.
+    global_batch = world > 1 and training_params.train_step_impl == "spmd"
+    generator = torch.Generator(device=device).manual_seed(
+        seed if global_batch else _rank_seed(seed, rank, world)
+    )
 
     resume_meta, resume_arrays = None, None
     if training_params.resume_train_state:
@@ -742,6 +744,25 @@ def train_model(
         start_epoch = int(resume_meta["epoch"])
         log.info(f"Resumed at epoch {start_epoch} (step {state.step})")
 
+    # The forward inside the train and eval steps and the refresh: the
+    # space-to-depth training forward (ops/s2d_train.py, the same
+    # parameters and statistics) when asked for, else the plain module.
+    # "auto" trains the plain module, as JAX's "parity" does (ROADMAP C).
+    compute_module = module
+    if training_params.train_forward_impl == "s2d":
+        from ..ops.s2d_train import maybe_build_s2d_train
+
+        compute_module = maybe_build_s2d_train(
+            module, model_container.get_config(), image_height, image_width
+        )
+        if compute_module is None:
+            raise ValueError(
+                "train_forward_impl='s2d' requires an s2d-eligible U-Net "
+                "config and image dims divisible by the transformed-level "
+                "factor"
+            )
+        log.info("Using s2d-transformed training forward")
+
     preprocess_fn = model_container.get_preprocess_input_fn()
     # Device augmentation: the generator keeps its mode logic (which sample
     # gets which augmentation) and the step applies it batched on the
@@ -780,12 +801,12 @@ def train_model(
     # Each node assembles its batch; each of its ranks steps on its rows.
     local_batch_size = training_params.batch_size // nodes
     train_step = make_train_step(
-        module, loss_fn, metric_fn, mesh,
+        compute_module, loss_fn, metric_fn, mesh,
         impl=training_params.train_step_impl,
         input_transform=input_transform,
     )
     eval_step = make_eval_step(
-        module, loss_fn, metric_fn, mesh, impl=training_params.train_step_impl
+        compute_module, loss_fn, metric_fn, mesh, impl=training_params.train_step_impl
     )
 
     monitor_name, monitor_mode = training_params.model_save_monitor
@@ -919,7 +940,7 @@ def train_model(
     ) and _has_bn_stats(module.state_dict()):
         from ..ops.bn_refresh import BNRefresher
 
-        bn_refresher = BNRefresher(module)
+        bn_refresher = BNRefresher(compute_module)
 
     # Equal-size batches (the law-of-total-variance aggregation assumes
     # them); one all-images batch when the training set is smaller than

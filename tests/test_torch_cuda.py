@@ -530,6 +530,38 @@ def test_train_step_never_waits_for_the_host(cuda):
     assert loss.is_cuda and metric.is_cuda and np.isfinite(float(loss))
 
 
+def test_s2d_train_step_never_waits_for_the_host(cuda):
+    """A warm train step of the s2d training forward makes no
+    synchronising CUDA call either: its index maps are copied to the card
+    once, at the first step."""
+    from oct_image_segmentation_models_torch.models import get_model_class
+    from oct_image_segmentation_models_torch.ops import losses, metrics
+    from oct_image_segmentation_models_torch.ops.s2d_train import S2DTrainForward
+    from oct_image_segmentation_models_torch.parallel import train_step as ts
+
+    c = 3
+    module = get_model_class("unet")(
+        input_channels=1, num_classes=c, image_height=32, image_width=64,
+        start_neurons=4, pool_layers=2,
+    ).build_model(generator=torch.Generator().manual_seed(0), device=cuda)
+    forward = S2DTrainForward(module)
+    step = ts.make_train_step(
+        forward, losses.focal_dice_loss(num_classes=c), metrics.dice_coef_macro(True, c)
+    )
+    state = ts.create_train_state(forward, ts.build_optimizer("adam", {}))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand((3, 32, 64, 1), device=cuda)
+    y = torch.randint(0, c, (3, 32, 64, 1), device=cuda)
+    step(state, x, y, gen)  # first use: optimizer state, index maps
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, loss, metric = step(state, x, y, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert loss.is_cuda and metric.is_cuda and np.isfinite(float(loss))
+
+
 def test_device_augmenter_on_the_card(cuda):
     """``build_device_augmenter`` on card tensors: a flipped sample equals
     ``torch.flip`` exactly (labels too), an unchosen one is untouched, and

@@ -29,6 +29,10 @@ classes, start_neurons=2, pool_layers=2).
 - The cross-rank ``BNRefresher`` (dropout off) against JAX's
   ``BNRefresher`` on both ranks' batches in one process: atol 1e-6, rtol
   1e-5. Unequal batch counts raise on every rank.
+- ``impl="spmd"`` on the same two ranks: one step on the global batch
+  (JAX's global dropout mask, each rank its rows) against JAX's spmd step
+  on the 2-device mesh, loss rel 1e-5 (``tests/test_torch_spmd_step.py``
+  holds the rest of it).
 - A world of one against the one-device step: bit for bit.
 - Two nodes of two ranks, each rank on its own data: every rank's weights
   and statistics bit for bit equal after 4 steps.
@@ -167,11 +171,14 @@ def module_from_inputs():
 module = module_from_inputs()
 loss_fn = losses.custom_loss_objects["focal_dice_loss"]["function"](num_classes=3, is_y_true_sparse=True)
 metric_fn = metrics.dice_coef_macro(True, 3)
-try:
-    ts.make_train_step(module, loss_fn, metric_fn, mesh, impl="spmd")
-    raise AssertionError("spmd on two ranks did not raise")
-except NotImplementedError as exc:
-    assert "A9b" in str(exc), exc
+# One spmd step on a copy: the global batch's loss on every rank.
+spmd_module = module_from_inputs()
+spmd_state = ts.create_train_state(spmd_module, ts.build_optimizer("adam", {}), mesh)
+spmd_step = ts.make_train_step(spmd_module, loss_fn, metric_fn, mesh, impl="spmd")
+masks.insert(0, torch.from_numpy(data["spmd_mask"][rows]))
+_, spmd_loss, _ = spmd_step(
+    spmd_state, torch.from_numpy(data["x"][0][rows]), torch.from_numpy(data["y"][0][rows]), None
+)
 state = ts.create_train_state(module, ts.build_optimizer("adam", {}), mesh)
 step = ts.make_train_step(module, loss_fn, metric_fn, mesh, impl="shard_map")
 evaluate = ts.make_eval_step(module, loss_fn, metric_fn, mesh)  # "auto": per replica
@@ -185,6 +192,7 @@ for x, y in zip(data["x"], data["y"]):
 assert not masks and state.step == len(data["x"])
 el, em = evaluate(state, torch.from_numpy(data["ex"][rows]), torch.from_numpy(data["ey"][rows]))
 out["eval"] = [float(el), float(em)]
+out["spmd_loss"] = float(spmd_loss)
 
 batches = [torch.from_numpy(b) for b in data["stat_x"][rank]]
 refresher = BNRefresher(module_from_inputs(), deterministic=True)
@@ -224,6 +232,8 @@ def two_ranks(tmp_path_factory):
         ])
         for key in keys
     ])
+    # The spmd step's global mask, drawn for the whole batch.
+    spmd_mask = _jax_mask(keys[0], (GLOBAL_BATCH,) + BOTTLENECK).numpy()
     ex, ey = _batch(250, GLOBAL_BATCH)
     stat_x = np.stack([np.stack([_batch(260 + 2 * r + i)[0] for i in range(2)]) for r in range(2)])
     sd = _port_module(variables).state_dict()
@@ -231,7 +241,7 @@ def two_ranks(tmp_path_factory):
         workdir / "inputs.npz",
         config=json.dumps(CONFIG),
         x=np.stack([b[0] for b in batches]), y=np.stack([b[1] for b in batches]),
-        masks=masks, ex=ex, ey=ey, stat_x=stat_x,
+        masks=masks, spmd_mask=spmd_mask, ex=ex, ey=ey, stat_x=stat_x,
         **{"sd/" + k: v.numpy() for k, v in sd.items()},
     )
     run_ranks(workdir, TWO_RANK_BODY, world=2, local=2)
@@ -270,6 +280,11 @@ def two_ranks(tmp_path_factory):
         want["metric"].append(float(mv))
     want["eval"] = [float(v) for v in evaluate(state, jnp.asarray(ex), jnp.asarray(ey))]
     want["sd"] = _state_dict_of(state.params, state.batch_stats)
+    spmd_step = jts.make_train_step(jmod, tx, jloss, jmetric, mesh, impl="spmd")
+    _, want["spmd_loss"], _ = spmd_step(
+        jts.create_train_state(params(), tx, mesh), jnp.asarray(batches[0][0]),
+        jnp.asarray(batches[0][1]), keys[0],
+    )
     precise = jax_bn.compute_precise_batch_stats(
         jmod, variables["params"], variables["batch_stats"],
         [jnp.asarray(b) for b in stat_x.reshape((-1,) + stat_x.shape[2:])],
@@ -293,6 +308,9 @@ def test_two_rank_step_matches_jax_shard_map(two_ranks):
     _check_params(got_sd, want["sd"], STEPS, 1e-3)
     for got, w in zip(out0["eval"], want["eval"]):
         assert abs(got - w) <= EVAL_RTOL * abs(w) + 1e-6, (out0["eval"], want["eval"])
+    # "spmd" on the same two ranks steps on the global batch, as JAX's.
+    wl = float(want["spmd_loss"])
+    assert abs(out0["spmd_loss"] - wl) <= RTOL * abs(wl), (out0["spmd_loss"], wl)
 
 
 def test_jax_shard_map_sums_what_the_port_averages(two_ranks):

@@ -350,7 +350,8 @@ def stub_mesh(nodes, local):
 def test_step_impls_and_mesh():
     """"auto" and "spmd" are the one-device step without a mesh;
     "shard_map" needs a mesh (a process group); "spmd" on more than one
-    rank is ROADMAP A9b; an unknown impl or a mesh of another type raises."""
+    rank builds the global-batch step (``tests/test_torch_spmd_step.py``
+    runs it); an unknown impl or a mesh of another type raises."""
     module = _port_module_random()
     fn = tl.dice_loss_macro(is_y_true_sparse=True, num_classes=C)
     for impl in ("auto", "spmd"):
@@ -359,10 +360,9 @@ def test_step_impls_and_mesh():
     for make in (tts.make_train_step, tts.make_eval_step):
         with pytest.raises(ValueError, match="needs a mesh"):
             make(module, fn, fn, impl="shard_map")
-        with pytest.raises(NotImplementedError, match="A9b"):
-            make(module, fn, fn, mesh=stub_mesh(1, 2), impl="spmd")
-        with pytest.raises(NotImplementedError, match="A9b"):
-            make(module, fn, fn, mesh=stub_mesh(2, 1), impl="spmd")
+        for mesh in (stub_mesh(1, 2), stub_mesh(2, 1)):
+            assert tts._resolve_impl(mesh, "spmd") == "global"
+            assert callable(make(module, fn, fn, mesh=mesh, impl="spmd"))
         with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             make(module, fn, fn, mesh=object())
         with pytest.raises(ValueError, match="unknown train step impl"):

@@ -348,12 +348,20 @@ def test_sigterm_stops_and_resumes(small_dataset, tmp_path):
         assert bool(f.attrs["bn_precise_stats_applied"]) is True
 
 
-def test_train_model_refusals(small_dataset, tmp_path):
+def test_train_model_refusals(small_dataset, tmp_path, tmp_path_factory):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_model(_params(small_dataset, tmp_path, device=None))
-    with pytest.raises(NotImplementedError, match="s2d"):
-        train_model(_params(small_dataset, tmp_path, train_forward_impl="s2d"))
+    # "s2d" trains an eligible U-Net, and refuses an ineligible one as JAX
+    # does (odd conv_layers).
+    s2d_run = tmp_path_factory.mktemp("s2d_run")
+    folder = train_model(_params(small_dataset, s2d_run, train_forward_impl="s2d", epochs=1))
+    assert (folder / "model_final.hdf5").exists()
+    with pytest.raises(ValueError, match="s2d-eligible"):
+        train_model(_params(
+            small_dataset, tmp_path, train_forward_impl="s2d",
+            model_hyperparameters={"start_neurons": 2, "pool_layers": 2, "conv_layers": 3},
+        ))
     with pytest.raises(ValueError, match="needs a mesh"):
         train_model(_params(small_dataset, tmp_path, train_step_impl="shard_map"))
     with pytest.raises(ValueError, match="model_save_monitor name"):
