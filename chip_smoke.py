@@ -43,19 +43,25 @@ Phases, each of which raises on failure:
      >= 0.999 of pixels. Then ``graph_search.segment_maps`` on one batch's
      uint8 maps (one B1 launch, the exact-tie rows again) and
      ``delineate_float`` on the card against the CPU, rows equal;
-   - the train path, the device part of ``train_model``: first one train
-     step at batch 2 of 128x256 on the card and on the CPU from the same
-     weights, batch and dropout mask (loss and BN statistics within stated
-     tolerances; per-tensor gradients against the CPU float64 step that
-     replays the card step's ReLU gates and max-pool picks); then, from
-     fresh weights, the
-     port's ``DataGenerator`` feeds ``train_step`` (focal + Dice, Adam 1e-3,
-     float32) for 120 steps at batch 8 of 512x1024, ``eval_step`` runs on a
-     validation batch and ``BNRefresher`` recomputes the statistics. The
-     loss must fall below the first step's and the statistics be finite
-     with var > 0. The trained weights are then served through the folded
-     path (B1) and the s2d path (B2) on held-out B-scans, rows against the
-     plain min-path, and their dice printed;
+   - the train path, the device part of ``train_model``, through the
+     forward that ``train_forward_impl="auto"`` resolves to
+     (``training.resolve_train_forward``: the s2d training forward of
+     ``ops/s2d_train.py`` for this U-Net, as in JAX; the phase prints it
+     and fails on another): first one train step at batch 2 of 128x256 on
+     the card and on the CPU from the same weights, batch and dropout
+     mask, through that forward and through the parity module (loss and
+     BN statistics within stated tolerances; per-tensor gradients against
+     the CPU float64 step that replays the card step's ReLU gates and
+     max-pool picks, the s2d forward's recorded by ``s2d_functional``,
+     whose count is printed and must not be 0); then, from fresh weights,
+     the port's ``DataGenerator`` feeds ``train_step`` (focal + Dice, Adam
+     1e-3, float32) for 120 steps at batch 8 of 512x1024, the parity step
+     timed beside it in turns, ``eval_step`` runs on a validation batch
+     and ``BNRefresher`` recomputes the statistics, all through that
+     forward. The loss must fall below the first step's and the statistics
+     be finite with var > 0. The trained weights are then served through
+     the folded path (B1) and the s2d path (B2) on held-out B-scans, rows
+     against the plain min-path, and their dice printed;
    - the s2d training path (``s2d_train_path``, ``ops/s2d_train.py``), run
      after the train path: one float64 step of ``S2DTrainForward`` on the
      card at batch 2 of 128x256 against one parity step from the same
@@ -74,6 +80,8 @@ Phases, each of which raises on failure:
      ``S2D_BF16_STEPS`` bfloat16 s2d steps and as many bfloat16 parity
      steps, timed;
    - the data-parallel path (``parallel/``), after ``torch.cuda.empty_cache()``:
+     every step through the forward ``"auto"`` resolves to (the s2d
+     training forward; DDP over it), as ``train_model`` trains;
      first a world of one over NCCL in this process, which runs the
      per-replica step (``impl="shard_map"``, DDP) at full width for 3 Adam
      steps at batch 8 of 512x1024 against the one-device step from the same
@@ -100,8 +108,9 @@ Phases, each of which raises on failure:
      then ``DP_TIMED`` spmd steps timed (two ranks share one card over
      gloo: no scaling number). Each rank counts its own kernel launches.
    - the DeepLabV3+ path (``deeplab_path``), run before the data-parallel
-     path, on DeepLabV3+ (the ResNet50 backbone to conv4, DSPP, decoder,
-     4 classes) with seeded random weights and the gray B-scans repeated
+     path from its own random stream, on DeepLabV3+ (the ResNet50
+     backbone to conv4, DSPP, decoder, 4 classes) with seeded random
+     weights and the gray B-scans repeated
      over 3 channels: the eval-mode forward, plain and BN-folded, on the
      card against the CPU at 2 x 128x256 (``PROB_ATOL``, argmax agreement);
      the 20-B-scan volume at 512x1024 through the folded
@@ -111,9 +120,13 @@ Phases, each of which raises on failure:
      step's gradients against the CPU float64 step that replays its ReLU
      gates and max-pool picks (the card held to the larger of
      ``STEP_GRAD_RTOL`` and ``DL_GRAD_CPU_FACTOR`` times the CPU float32
-     step's own error, per tensor); 30 train steps at batch 8 of 512x1024
-     from the ``DataGenerator`` (the loss must fall), the eval step,
-     ``BNRefresher``, and the trained weights served through B1. Its
+     step's own error, per tensor; the factor set from the spread that
+     ``tools/torch_deeplab_gate_probe.py`` measured over seeds); the train
+     step at batch 8 of 512x1024 from the ``DataGenerator`` timed on a
+     copy of the weights, then 30 train steps (the loss must fall), the
+     eval step and ``BNRefresher`` under deterministic algorithms, from a
+     stream of their own, so that the trained weights, served through B1
+     here and in bfloat16 by the bf16 path, are one set per seed. Its
      serving times, FLOPs and profile and its train step's split and peak
      memory are printed with the others.
    - the export path (``export_path``), run after the DeepLabV3+ path,
@@ -145,9 +158,12 @@ Phases, each of which raises on failure:
      px); each pipeline's ms per batch, B-scans/s, the forward's TFLOP/s
      against 989 TFLOP/s dense bf16, and the busy share; one bfloat16 train
      step at batch 2 of 128x256 on the card against the CPU (and both
-     against the CPU float64 step); ``BF16_TRAIN_STEPS`` bfloat16 train
-     steps at batch 8 of 512x1024 (the loss must fall) with the step's
-     ms, split, FLOPs and peak memory; and one bfloat16 s2d export
+     against the CPU float64 step), through the forward ``"auto"``
+     resolves to (s2d) and through the parity module; ``BF16_TRAIN_STEPS``
+     bfloat16 train steps at batch 8 of 512x1024 through the forward
+     ``"auto"`` resolves to (the loss must fall) with the step's ms,
+     split, FLOPs and peak memory, the parity step timed beside it in
+     turns; and one bfloat16 s2d export
      artifact, traced in-process, serving the volume bit-equal to eager
      bfloat16 serving with 3 B2 launches.
 4. Times, with CUDA events (median of several runs after warm-up): both
@@ -173,7 +189,9 @@ tests (``tests/test_torch_predict_evaluate.py``,
 HDF5: directory checkpoints and the ``torch.export`` artifact need none.
 
 It prints one ``{"bf16": {...}}`` line with the bfloat16 path's results,
-one ``{"s2d_train": {...}}`` line with the s2d training path's,
+one ``{"s2d_train": {...}}`` line with the s2d training path's, one
+``{"train_default": {...}}`` line with the default (``"auto"``) train
+steps' forward, times and gradient gates,
 one ``{"dp": {...}}`` line with the data-parallel path's results, one
 ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -186,6 +204,7 @@ import argparse
 import contextlib
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -195,6 +214,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+# cuBLAS sums in a fixed order only with a fixed workspace, read when its
+# first handle is made: the matmuls of the DeepLab's deterministic
+# training (``DeterministicResize``'s backward) need it.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 H, W, BATCH, NUM_CLASSES = 512, 1024, 8, 4
 VOLUME = 20  # two full batches and a remainder of 4
@@ -513,22 +537,32 @@ def phase_enc_pair_parity(rng) -> dict:
     return {"max_abs_err": max_err, "flagship_args": flagship}
 
 
-def build_unet(seed: int):
+def unet_container(h: int = H, w: int = W, **kw):
+    """The bench's U-Net container (start_neurons=32, pool_layers=4,
+    conv_layers=2) at ``h`` x ``w``."""
     from oct_image_segmentation_models_torch.models import get_model_class
 
-    container = get_model_class("unet")(
-        input_channels=1,
-        num_classes=NUM_CLASSES,
-        image_height=H,
-        image_width=W,
-        start_neurons=32,
-        pool_layers=4,
-        conv_layers=2,
+    return get_model_class("unet")(
+        input_channels=1, num_classes=NUM_CLASSES, image_height=h, image_width=w,
+        start_neurons=32, pool_layers=4, conv_layers=2, **kw,
     )
+
+
+def build_unet(seed: int):
+    container = unet_container()
     module = container.build_model(
         generator=torch.Generator().manual_seed(seed), device="cuda"
     )
     return container, module
+
+
+def auto_forward(module, h: int = H, w: int = W):
+    """``(forward, kind)``: the forward that ``train_model`` trains the
+    bench's U-Net ``module`` through at ``h`` x ``w`` under
+    ``train_forward_impl="auto"`` (``training.resolve_train_forward``)."""
+    from oct_image_segmentation_models_torch.training.training import resolve_train_forward
+
+    return resolve_train_forward(module, unet_container(h, w).get_config(), h, w, "auto")
 
 
 def kernel_counts() -> dict:
@@ -941,6 +975,10 @@ TRAIN_IMAGES = 32  # four batches of 8 per epoch
 TRAIN_STEPS = 120  # the JAX bench's brief training (bench.py:543)
 TRAIN_TIMED = 10
 TRAIN_WARMUP = 2
+# Two forwards' steps timed in turns: TURN_RUNS runs of TURN_STEPS steps
+# each, every forward's run in turn; its time the fastest run's.
+TURN_STEPS = 5
+TURN_RUNS = 2
 CHECK_H, CHECK_W, CHECK_BATCH = 128, 256, 2
 # One train step on the card against the CPU, same weights, batch and
 # dropout mask, float32 on both (the step turns TF32 off itself): the
@@ -993,6 +1031,20 @@ class GateRecorder:
         self.picks.append(idx.cpu())
         return out
 
+    def phase_max_pool(self, x):
+        """The s2d forward's max over the 4 phase groups of an NCHW ``x``
+        (``ops/s2d_unet.py::_phase_max_pool_nchw``); its picks are the
+        phase each output takes."""
+        from oct_image_segmentation_models_torch.ops.s2d_unet import _phase_max_pool_nchw
+
+        b, c4, h, w = x.shape
+        phases = x.reshape(b, 4, c4 // 4, h, w)
+        if self._picks is not None:
+            idx = next(self._picks).to(x.device)
+            return torch.gather(phases, 1, idx[:, None]).squeeze(1)
+        self.picks.append(phases.argmax(dim=1).cpu())
+        return _phase_max_pool_nchw(x)
+
 
 @contextlib.contextmanager
 def unet_functional(recorder):
@@ -1006,6 +1058,20 @@ def unet_functional(recorder):
         yield recorder
     finally:
         unet_module.F = saved
+
+
+@contextlib.contextmanager
+def s2d_functional(recorder):
+    """``ops/s2d_train.py`` calls ``recorder`` for its ``F.relu`` and
+    ``F.max_pool2d`` and for its phase max-pool inside."""
+    from oct_image_segmentation_models_torch.ops import s2d_train
+
+    saved = s2d_train.F, s2d_train._phase_max_pool_nchw
+    s2d_train.F, s2d_train._phase_max_pool_nchw = recorder, recorder.phase_max_pool
+    try:
+        yield recorder
+    finally:
+        s2d_train.F, s2d_train._phase_max_pool_nchw = saved
 
 
 def gate_flips(a: GateRecorder, b: GateRecorder) -> tuple:
@@ -1040,21 +1106,32 @@ def _train_objects(module, seed: int, mesh=None, impl: str = "auto"):
 def check_train_step_card_vs_cpu(rng, seed: int) -> dict:
     """One full-width train step at batch 2 of 128x256 on the card and on
     the CPU in float32, from the same weights, batch and dropout mask,
-    under the global TF32 defaults (the step sets its own precision). The
-    gradients of each are held against the CPU float64 step that takes
-    that step's ReLU gates and max-pool picks."""
-    from oct_image_segmentation_models_torch.models import get_model_class
-    from oct_image_segmentation_models_torch.models import unet as unet_module
-
-    container = get_model_class("unet")(
-        input_channels=1, num_classes=NUM_CLASSES, image_height=CHECK_H,
-        image_width=CHECK_W, start_neurons=32, pool_layers=4, conv_layers=2,
-    )
-    card = container.build_model(generator=torch.Generator().manual_seed(seed + 1), device="cuda")
-    initial = copy.deepcopy(card).cpu()
+    under the global TF32 defaults (the step sets its own precision),
+    through the forward that ``train_forward_impl="auto"`` resolves to
+    (the s2d training forward) and through the parity module. The
+    gradients of each step are held against the CPU float64 step that
+    takes that step's ReLU gates and max-pool picks (the s2d forward's
+    phase picks included)."""
+    card = check_size_unet(seed + 1)
+    _, kind = auto_forward(card, CHECK_H, CHECK_W)
+    print(f"train step check: train_forward_impl='auto' resolved to {kind} at {CHECK_H}x{CHECK_W}")
+    if kind != "s2d":
+        raise AssertionError(f"'auto' resolved to {kind} for the bench's U-Net")
+    initial = card.cpu()
     images, labels = layered_dataset(rng, CHECK_BATCH, CHECK_H, CHECK_W, NUM_CLASSES)
     x = torch.from_numpy(images.astype(np.float32) / 255.0)
     y = torch.from_numpy(labels)
+    return {"auto_kind": kind, **{k: step_gate(k, initial, x, y, seed) for k in (kind, "parity")}}
+
+
+def step_gate(kind: str, initial, x, y, seed: int) -> dict:
+    """:func:`check_train_step_card_vs_cpu` for one forward, ``kind``
+    "s2d" (``S2DTrainForward``, whose ReLUs and pools ``s2d_functional``
+    records) or "parity" (the module, ``unet_functional``)."""
+    from oct_image_segmentation_models_torch.models import unet as unet_module
+    from oct_image_segmentation_models_torch.ops.s2d_train import S2DTrainForward
+
+    functional = s2d_functional if kind == "s2d" else unet_functional
     masks = {}
 
     def shared_mask(t, generator):
@@ -1065,8 +1142,9 @@ def check_train_step_card_vs_cpu(rng, seed: int) -> dict:
 
     def run(module, recorder):
         dev = next(module.parameters()).device
-        state, step, _ = _train_objects(module, seed)
-        with unet_functional(recorder):
+        forward = S2DTrainForward(module) if kind == "s2d" else module
+        state, step, _ = _train_objects(forward, seed)
+        with functional(recorder):
             _, loss, metric = step(state, x.to(dev), y.to(dev), None)
         # the optimizer runs after the backward: the step's gradients are
         # still on the parameters afterwards
@@ -1078,7 +1156,7 @@ def check_train_step_card_vs_cpu(rng, seed: int) -> dict:
     unet_module.dropout_mask = shared_mask
     rec = {"card": GateRecorder(), "cpu": GateRecorder(), "cpu64": GateRecorder()}
     try:
-        l_card, m_card, g_card, s_card = run(card, rec["card"])
+        l_card, m_card, g_card, s_card = run(copy.deepcopy(initial).cuda(), rec["card"])
         l_cpu, m_cpu, g_cpu, s_cpu = run(copy.deepcopy(initial), rec["cpu"])
         g64 = run(copy.deepcopy(initial).double(), rec["cpu64"])[2]
         g64_card = run(copy.deepcopy(initial).double(), GateRecorder(replay=rec["card"]))[2]
@@ -1110,12 +1188,22 @@ def check_train_step_card_vs_cpu(rng, seed: int) -> dict:
     plain_card, plain_cpu = max(r[2] for r in rel), max(r[3] for r in rel)
     flips_card, flips_cpu = gate_flips(rec["card"], rec["cpu64"]), gate_flips(rec["cpu"], rec["cpu64"])
     stat_err = max(float((s_card[k] - s_cpu[k]).abs().max()) for k in s_cpu)
+    # What the card step recorded: ReLUs and pools, and their gates and picks.
+    recorded = {
+        "relus": len(rec["card"].gates), "gates": sum(g.numel() for g in rec["card"].gates),
+        "pools": len(rec["card"].picks), "picks": sum(p.numel() for p in rec["card"].picks),
+    }
     print(
-        f"train step card vs CPU (start_neurons 32, batch {CHECK_BATCH} x {CHECK_H}x{CHECK_W}, "
-        f"float32): loss {l_card:.6f} / {l_cpu:.6f} (rel {loss_err:.2e}, tolerance "
-        f"{STEP_LOSS_RTOL:g}), metric {m_card:.6f} / {m_cpu:.6f}, BN statistics max |diff| "
-        f"{stat_err:.2e} (tolerance {STEP_STAT_ATOL:g}), pre-BN conv bias gradients "
+        f"train step card vs CPU ({kind} forward, start_neurons 32, batch {CHECK_BATCH} x "
+        f"{CHECK_H}x{CHECK_W}, float32): loss {l_card:.6f} / {l_cpu:.6f} (rel {loss_err:.2e}, "
+        f"tolerance {STEP_LOSS_RTOL:g}), metric {m_card:.6f} / {m_cpu:.6f}, BN statistics max "
+        f"|diff| {stat_err:.2e} (tolerance {STEP_STAT_ATOL:g}), pre-BN conv bias gradients "
         f"{zero_grad / gmax:.2e} of max |g| (bound {ZERO_GRAD_SHARE:g})"
+    )
+    print(
+        f"  recorded on the card from {'ops/s2d_train.py' if kind == 's2d' else 'models/unet.py'}"
+        f": {recorded['relus']} ReLUs ({recorded['gates']} gates), {recorded['pools']} max-pools "
+        f"({recorded['picks']} picks), replayed by the float64 steps"
     )
     print(
         f"  gradients against the float64 step with the same ReLU gates and max-pool picks, "
@@ -1129,16 +1217,19 @@ def check_train_step_card_vs_cpu(rng, seed: int) -> dict:
     )
     for card_rel, cpu_rel, _, _, k in sorted(rel, reverse=True)[:3]:
         print(f"  gradient {k}: card {card_rel:.3f}, CPU float32 {cpu_rel:.3f} of the allowance")
+    if not (recorded["gates"] and recorded["picks"]):
+        raise AssertionError(f"the {kind} step recorded no gates or picks: {recorded}")
     if not (np.isfinite(l_card) and loss_err <= STEP_LOSS_RTOL):
-        raise AssertionError(f"card train-step loss {l_card} off the CPU's {l_cpu}")
+        raise AssertionError(f"card {kind} train-step loss {l_card} off the CPU's {l_cpu}")
     if card_worst > 1 or cpu_worst > 1 or zero_grad > ZERO_GRAD_SHARE * gmax:
         raise AssertionError(
-            f"gradients off float64 with the same gates: card {card_worst}, CPU {cpu_worst} "
-            f"of the allowance; zero share {zero_grad / gmax}"
+            f"{kind} gradients off float64 with the same gates: card {card_worst}, CPU "
+            f"{cpu_worst} of the allowance; zero share {zero_grad / gmax}"
         )
     if stat_err > STEP_STAT_ATOL:
-        raise AssertionError(f"card BN statistics off the CPU's by {stat_err}")
+        raise AssertionError(f"card {kind} BN statistics off the CPU's by {stat_err}")
     return {
+        "recorded": recorded,
         "loss_rel_err": loss_err,
         "grad_card_worst_of_allowance": card_worst,
         "grad_cpu_worst_of_allowance": cpu_worst,
@@ -1163,11 +1254,14 @@ def train_flop(step, state, x, y, generator) -> int:
 
 
 def phase_train_path(rng, seed: int) -> dict:
-    """The training slice's device part at full width: the port's
+    """The training slice's device part at full width, through the
+    forward that ``train_forward_impl="auto"`` resolves to (the s2d
+    training forward, as ``train_model`` trains): the port's
     DataGenerator feeds ``train_step`` (focal + Dice, Adam 1e-3, float32)
-    for ``TRAIN_STEPS`` steps at batch 8 of 512x1024, then ``eval_step``
-    and the precise-BN ``BNRefresher``; the trained weights are served
-    through the folded path (B1) and the s2d path (B2)."""
+    for ``TRAIN_STEPS`` steps at batch 8 of 512x1024, the parity step
+    timed beside it in turns, then ``eval_step`` and the precise-BN
+    ``BNRefresher``; the trained weights are served through the folded
+    path (B1) and the s2d path (B2)."""
     from oct_image_segmentation_models_torch.common.data_generator import DataGenerator
     from oct_image_segmentation_models_torch.common.model_io import LoadedModel
     from oct_image_segmentation_models_torch.models.unet import fold_batchnorm
@@ -1178,6 +1272,11 @@ def phase_train_path(rng, seed: int) -> dict:
 
     out = {"step_check": check_train_step_card_vs_cpu(rng, seed)}
     container, module = build_unet(seed)
+    forward, kind = auto_forward(module)
+    out["auto_kind"] = kind
+    print(f"train path: train_forward_impl='auto' resolved to {kind} at {H}x{W}")
+    if kind != "s2d":
+        raise AssertionError(f"'auto' resolved to {kind} for the bench's U-Net")
     preprocess = container.get_preprocess_input_fn()
     train_x, train_y = layered_dataset(rng, TRAIN_IMAGES, H, W, NUM_CLASSES)
     val_x, val_y = layered_dataset(rng, BATCH, H, W, NUM_CLASSES)
@@ -1196,7 +1295,7 @@ def phase_train_path(rng, seed: int) -> dict:
             gen.on_epoch_end()
 
     stream = batches()
-    state, step, evaluate = _train_objects(module, seed)
+    state, step, evaluate = _train_objects(forward, seed)
     losses = []
     fixed = [next(stream) for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
     for x, y in fixed[:TRAIN_WARMUP]:
@@ -1238,17 +1337,34 @@ def phase_train_path(rng, seed: int) -> dict:
     profiled = profile_pipeline(lambda b: step(state, b[0], b[1], generator), fixed[1], calls=2)
     out.update({f"profile_{k}": v for k, v in profiled.items()})
 
+    # The parity step beside it, timed in turns from the same weights.
+    parity_module = copy.deepcopy(module)
+    p_state, p_step, _ = _train_objects(parity_module, seed)
+    ms, _ = time_in_turns(
+        {kind: (state, step), "parity": (p_state, p_step)},
+        fixed[TRAIN_WARMUP:TRAIN_WARMUP + TURN_STEPS], generator,
+    )
+    del parity_module, p_state, p_step
+    out["turns_step_ms"] = {name: min(v) for name, v in ms.items()}
+    out["turns_step_ms_runs"] = ms
+    print(
+        f"train path: the {kind} step {out['turns_step_ms'][kind]:.3f} ms against the parity "
+        f"step's {out['turns_step_ms']['parity']:.3f} ms, timed in turns (runs "
+        + "; ".join(f"{n} {', '.join(f'{v:.3f}' for v in r)}" for n, r in ms.items())
+        + ")"
+    )
+
     # Training on through the generator, host batches and uploads included.
-    done = TRAIN_WARMUP + TRAIN_TIMED + 5 + 1 + 3
+    loop_steps = TRAIN_STEPS - state.step
     torch.cuda.synchronize()
     t_host = time.perf_counter()
-    for _ in range(TRAIN_STEPS - done):
+    for _ in range(loop_steps):
         x, y = next(stream)
         _, loss, _ = step(state, x, y, generator)
         losses.append(loss)
     torch.cuda.synchronize()
     out["loop_s"] = time.perf_counter() - t_host
-    out["loop_steps"] = TRAIN_STEPS - done
+    out["loop_steps"] = loop_steps
     out["loop_bscans_per_s"] = BATCH * out["loop_steps"] / out["loop_s"]
     losses = torch.stack(losses).cpu().numpy()
     out["losses_first_last"] = (float(losses[0]), float(losses[-1]))
@@ -1264,7 +1380,7 @@ def phase_train_path(rng, seed: int) -> dict:
         upload(preprocess(train_x[i:i + BATCH].astype(np.float32)))
         for i in range(0, TRAIN_IMAGES, BATCH)
     ]
-    refresher = BNRefresher(module)
+    refresher = BNRefresher(forward)
     torch.cuda.synchronize()
     t_ref = time.perf_counter()
     precise = refresher(
@@ -1329,8 +1445,6 @@ def phase_train_path(rng, seed: int) -> dict:
 # --- the space-to-depth training path --------------------------------------
 
 S2D_TRAIN_STEPS = 30
-S2D_TIMED = 5  # steps per timed run, s2d and parity in turns
-S2D_TIMED_RUNS = 2
 S2D_BF16_STEPS = 8
 # s2d against parity in float64 (one step, the same weights and dropout
 # mask, a float64 cross-entropy): the transform is exact algebra, so only
@@ -1400,13 +1514,23 @@ def check64(res: dict, what: str) -> None:
 
 def check_size_unet(seed: int, device="cuda"):
     """The bench's U-Net at the check size (``CHECK_H`` x ``CHECK_W``)."""
-    from oct_image_segmentation_models_torch.models import get_model_class
-
-    container = get_model_class("unet")(
-        input_channels=1, num_classes=NUM_CLASSES, image_height=CHECK_H,
-        image_width=CHECK_W, start_neurons=32, pool_layers=4, conv_layers=2,
+    return unet_container(CHECK_H, CHECK_W).build_model(
+        generator=torch.Generator().manual_seed(seed), device=device
     )
-    return container.build_model(generator=torch.Generator().manual_seed(seed), device=device)
+
+
+def time_in_turns(runs: dict, batches, generator) -> tuple:
+    """``({name: [ms per step of each run]}, {name: peak MiB})`` of the
+    ``(state, step)`` pairs in ``runs``, timed in turns: ``TURN_RUNS``
+    rounds, each of which times every pair once over ``batches``."""
+    ms, peak = {name: [] for name in runs}, {}
+    for _ in range(TURN_RUNS):
+        for name, (state, step) in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms[name].append(timed_steps(step, state, batches, generator))
+            peak[name] = torch.cuda.max_memory_allocated() / 2**20
+    return ms, peak
 
 
 def timed_steps(step, state, batches, generator) -> float:
@@ -1532,15 +1656,15 @@ def phase_s2d_train_path(rng, seed: int) -> dict:
         return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().cuda(non_blocking=True)
 
     fixed = []
-    while len(fixed) < S2D_TIMED:
+    while len(fixed) < TURN_STEPS:
         fixed += [(upload(bx), upload(by)) for bx, by in gen]
         gen.on_epoch_end()
-    fixed = fixed[:S2D_TIMED]
+    fixed = fixed[:TURN_STEPS]
     state, step, _ = _train_objects(forward, seed)
     losses = []
     t0 = time.perf_counter()
     for i in range(S2D_TRAIN_STEPS):
-        x, y = fixed[i % S2D_TIMED]
+        x, y = fixed[i % TURN_STEPS]
         _, loss, _ = step(state, x, y, generator)
         losses.append(loss)
     torch.cuda.synchronize()
@@ -1557,14 +1681,7 @@ def phase_s2d_train_path(rng, seed: int) -> dict:
     # The s2d step and the parity step, timed in turns from the same state.
     parity_module = copy.deepcopy(module)
     p_state, p_step, _ = _train_objects(parity_module, seed)
-    ms = {"s2d": [], "parity": []}
-    peak = {}
-    for _ in range(S2D_TIMED_RUNS):
-        for name, (st, fn) in (("s2d", (state, step)), ("parity", (p_state, p_step))):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ms[name].append(timed_steps(fn, st, fixed, generator))
-            peak[name] = torch.cuda.max_memory_allocated() / 2**20
+    ms, peak = time_in_turns({"s2d": (state, step), "parity": (p_state, p_step)}, fixed, generator)
     for name, (st, fn) in (("s2d", (state, step)), ("parity", (p_state, p_step))):
         out[f"{name}_step_ms"] = min(ms[name])
         out[f"{name}_step_ms_runs"] = ms[name]
@@ -1674,8 +1791,14 @@ DL_TRAIN_WARMUP = 2
 # pooled branch; float64 convolutions and BatchNorms together take it to
 # about 1e-5 at batch 8. Each tensor of the card's step is held to the
 # larger of the U-Net's allowance and DL_GRAD_CPU_FACTOR times the CPU
-# float32 step's own error.
-DL_GRAD_CPU_FACTOR = 2.0
+# float32 step's own error. The card's and the CPU's errors are two
+# roundings of one sum in different orders, so their ratio spreads with
+# the data: over seeds 0-9 (tools/torch_deeplab_gate_probe.py, H100 80GB
+# HBM3 at 700 W) the factor each seed needs, its largest card / CPU ratio
+# among the tensors whose card error passes STEP_GRAD_RTOL, was 1.01-2.38
+# (median 1.68), so 2.0 failed 2 of the 10. 4.0 sits at 3.1 standard
+# deviations of the log of that spread above its mean.
+DL_GRAD_CPU_FACTOR = 4.0
 
 
 def build_deeplab(seed: int, h: int = H, w: int = W, device="cuda"):
@@ -1815,11 +1938,14 @@ def deeplab_serving_times(serving: dict, volume: np.ndarray) -> dict:
     return out
 
 
-def deeplab_step_card_vs_cpu(rng, seed: int) -> dict:
+def deeplab_step_errors(rng, seed: int) -> dict:
     """One DeepLab train step at batch 2 of 64x128 on the card and on the
     CPU in float32 from the same weights and batch; the gradients of each
     against the CPU float64 step that replays that step's ReLU gates and
-    max-pool picks."""
+    max-pool picks. Returns the losses, the statistics' error, the
+    pre-BN conv biases' share and, per tensor, ``(card's error, CPU's
+    error, card's and CPU's error against the plain float64 step,
+    name)``, each relative to the tensor's max."""
     container, card = build_deeplab(seed + 2, DL_CHECK_H, DL_CHECK_W)
     initial = copy.deepcopy(card).cpu()
     images, labels = layered_dataset(rng, DL_CHECK_BATCH, DL_CHECK_H, DL_CHECK_W, NUM_CLASSES)
@@ -1841,37 +1967,55 @@ def deeplab_step_card_vs_cpu(rng, seed: int) -> dict:
     g64 = run(copy.deepcopy(initial).double(), rec["cpu64"])[2]
     g64_card = run(copy.deepcopy(initial).double(), GateRecorder(replay=rec["card"]))[2]
     g64_cpu = run(copy.deepcopy(initial).double(), GateRecorder(replay=rec["cpu"]))[2]
-    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
     gmax = max(float(g.abs().max()) for g in g64.values())
 
     def rel(got, want):
         return float((got - want).abs().max()) / float(want.abs().max())
 
-    zero_grad, rows = 0.0, []
+    zero_grad, tensors = 0.0, []
     for k, g in g64.items():
         if k.endswith("conv.bias"):  # every conv bias but the head's feeds a BatchNorm
             zero_grad = max(zero_grad, float(g_cpu[k].abs().max()), float(g_card[k].abs().max()))
             continue
-        card_rel, cpu_rel = rel(g_card[k], g64_card[k]), rel(g_cpu[k], g64_cpu[k])
-        allowed = max(STEP_GRAD_RTOL, DL_GRAD_CPU_FACTOR * cpu_rel)
-        rows.append((card_rel / allowed, card_rel, cpu_rel, rel(g_card[k], g), rel(g_cpu[k], g), k))
-    rows.sort(reverse=True)
-    worst = rows[0][0]
-    card_max, cpu_max = max(r[1] for r in rows), max(r[2] for r in rows)
-    plain_card, plain_cpu = max(r[3] for r in rows), max(r[4] for r in rows)
-    flips_card = gate_flips(rec["card"], rec["cpu64"])
-    flips_cpu = gate_flips(rec["cpu"], rec["cpu64"])
+        tensors.append((rel(g_card[k], g64_card[k]), rel(g_cpu[k], g64_cpu[k]),
+                        rel(g_card[k], g), rel(g_cpu[k], g), k))
     # the stem's running statistics reach ~1e2 (preprocessed inputs of
     # +-130): held relative to 1 + |value|
     stat_err = max(
         float(((s_card[k] - s_cpu[k]).abs() / (1 + s_cpu[k].abs())).max()) for k in s_cpu
     )
+    return {
+        "losses": (l_card, l_cpu), "metrics": (m_card, m_cpu), "tensors": tensors,
+        "zero_grad_share": zero_grad / gmax, "stat_err": stat_err,
+        "gate_flips_card": gate_flips(rec["card"], rec["cpu64"]),
+        "gate_flips_cpu": gate_flips(rec["cpu"], rec["cpu64"]),
+    }
+
+
+def deeplab_step_card_vs_cpu(rng, seed: int) -> dict:
+    """:func:`deeplab_step_errors`, gated: each tensor of the card's step
+    within the larger of ``STEP_GRAD_RTOL`` and ``DL_GRAD_CPU_FACTOR``
+    times the CPU float32 step's own error, against the float64 steps
+    that replay each step's gates."""
+    res = deeplab_step_errors(rng, seed)
+    (l_card, l_cpu), (m_card, m_cpu) = res["losses"], res["metrics"]
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    rows = []
+    for card_rel, cpu_rel, plain_card, plain_cpu, k in res["tensors"]:
+        allowed = max(STEP_GRAD_RTOL, DL_GRAD_CPU_FACTOR * cpu_rel)
+        rows.append((card_rel / allowed, card_rel, cpu_rel, plain_card, plain_cpu, k))
+    rows.sort(reverse=True)
+    worst = rows[0][0]
+    card_max, cpu_max = max(r[1] for r in rows), max(r[2] for r in rows)
+    plain_card, plain_cpu = max(r[3] for r in rows), max(r[4] for r in rows)
+    flips_card, flips_cpu = res["gate_flips_card"], res["gate_flips_cpu"]
+    zero_share, stat_err = res["zero_grad_share"], res["stat_err"]
     print(
         f"deeplab train step card vs CPU (batch {DL_CHECK_BATCH} x {DL_CHECK_H}x{DL_CHECK_W}, "
         f"float32): loss {l_card:.6f} / {l_cpu:.6f} (rel {loss_err:.2e}, tolerance "
         f"{STEP_LOSS_RTOL:g}), metric {m_card:.6f} / {m_cpu:.6f}, BN statistics max |diff| / "
         f"(1 + |value|) {stat_err:.2e} (tolerance {STEP_STAT_ATOL:g}), pre-BN conv bias "
-        f"gradients {zero_grad / gmax:.2e} of max |g| (bound {ZERO_GRAD_SHARE:g})"
+        f"gradients {zero_share:.2e} of max |g| (bound {ZERO_GRAD_SHARE:g})"
     )
     print(
         f"  gradients against the float64 step with the same ReLU gates and max-pool picks, "
@@ -1888,10 +2032,10 @@ def deeplab_step_card_vs_cpu(rng, seed: int) -> dict:
         print(f"  gradient {k}: card {card_rel:.2e}, CPU float32 {cpu_rel:.2e} of max |g|")
     if not (np.isfinite(l_card) and loss_err <= STEP_LOSS_RTOL):
         raise AssertionError(f"deeplab card train-step loss {l_card} off the CPU's {l_cpu}")
-    if worst > 1 or zero_grad > ZERO_GRAD_SHARE * gmax:
+    if worst > 1 or zero_share > ZERO_GRAD_SHARE:
         raise AssertionError(
             f"deeplab gradients off float64 with the same gates: {worst} of the allowance "
-            f"({rows[0][-1]}); zero share {zero_grad / gmax}"
+            f"({rows[0][-1]}); zero share {zero_share}"
         )
     if stat_err > STEP_STAT_ATOL:
         raise AssertionError(f"deeplab card BN statistics off the CPU's by {stat_err}")
@@ -1905,19 +2049,25 @@ def deeplab_step_card_vs_cpu(rng, seed: int) -> dict:
         "grad_cpu_worst_rel_plain_float64": plain_cpu,
         "gate_flips_card": flips_card,
         "gate_flips_cpu": flips_cpu,
-        "zero_grad_share": zero_grad / gmax,
+        "zero_grad_share": zero_share,
         "bn_stat_rel_err": stat_err,
     }
 
 
-def deeplab_train(rng, seed: int) -> dict:
-    """``DL_TRAIN_STEPS`` train steps at batch 8 of 512x1024 from the
-    port's DataGenerator (focal + Dice, Adam 1e-3, float32), an eval step,
-    one BNRefresher pass, and the trained weights served through B1."""
+def deeplab_train(seed: int) -> dict:
+    """The DeepLab train step at batch 8 of 512x1024 from the port's
+    DataGenerator (focal + Dice, Adam 1e-3, float32) timed with the
+    default algorithms on a copy of the weights; then ``DL_TRAIN_STEPS``
+    steps from the same weights, an eval step and one BNRefresher pass
+    under deterministic algorithms, so that ``seed`` gives one set of
+    trained weights on this card and software (``resize_bilinear``'s
+    backward through ``DeterministicResize``); the trained weights served
+    through B1. Draws from its own stream, ``default_rng([seed, 13])``."""
     from oct_image_segmentation_models_torch.common.data_generator import DataGenerator
     from oct_image_segmentation_models_torch.ops.bn_refresh import BNRefresher
     from oct_image_segmentation_models_torch.parallel.train_step import load_batch_stats
 
+    rng = np.random.default_rng([seed, 13])
     container, module = build_deeplab(seed + 3)
     preprocess = container.get_preprocess_input_fn()
     train_x, train_y = layered_dataset(rng, 2 * BATCH, H, W, NUM_CLASSES)
@@ -1934,12 +2084,13 @@ def deeplab_train(rng, seed: int) -> dict:
             gen.on_epoch_end()
 
     stream = batches()
-    state, step, evaluate = _train_objects(module, seed)
-    generator = torch.Generator(device="cuda").manual_seed(seed)
-    out, losses = {}, []
+    out = {}
     fixed = [next(stream) for _ in range(DL_TRAIN_WARMUP + DL_TRAIN_TIMED)]
+    timed = copy.deepcopy(module)
+    state, step, _ = _train_objects(timed, seed)
+    generator = torch.Generator(device="cuda").manual_seed(seed)
     for bx, by in fixed[:DL_TRAIN_WARMUP]:
-        losses.append(step(state, bx, by, generator)[1])
+        step(state, bx, by, generator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     phases = ("forward", "backward", "optimizer")
@@ -1947,7 +2098,7 @@ def deeplab_train(rng, seed: int) -> dict:
     for bx, by in fixed[DL_TRAIN_WARMUP:]:
         ev = {name: torch.cuda.Event(enable_timing=True) for name in ("start",) + phases}
         ev["start"].record()
-        losses.append(step(state, bx, by, generator, on_phase=lambda n: ev[n].record())[1])
+        step(state, bx, by, generator, on_phase=lambda n: ev[n].record())
         ev["optimizer"].synchronize()
         for a, b in zip(("start",) + phases, phases):
             splits[b].append(ev[a].elapsed_time(ev[b]))
@@ -1960,33 +2111,45 @@ def deeplab_train(rng, seed: int) -> dict:
     out["gflop_per_step"] = flop / 1e9
     out["tflops"] = flop / 1e9 / out["step_ms"]
     out["bound_ms"] = flop / FP32_FLOPS_PER_S * 1e3
-    done = DL_TRAIN_WARMUP + DL_TRAIN_TIMED + 1
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(DL_TRAIN_STEPS - done):
-        bx, by = next(stream)
-        losses.append(step(state, bx, by, generator)[1])
-    torch.cuda.synchronize()
-    out["loop_s"] = time.perf_counter() - t0
-    out["loop_bscans_per_s"] = BATCH * (DL_TRAIN_STEPS - done) / out["loop_s"]
+    del timed, state, step
+    torch.cuda.empty_cache()
+
+    state, step, evaluate = _train_objects(module, seed)
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    losses = []
+    with deterministic_algorithms() as caught:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DL_TRAIN_STEPS):
+            bx, by = fixed[i] if i < len(fixed) else next(stream)
+            losses.append(step(state, bx, by, generator)[1])
+        torch.cuda.synchronize()
+        out["loop_s"] = time.perf_counter() - t0
+        vx, vy = fixed[0]
+        val_loss, val_metric = evaluate(state, vx, vy)
+        stat_batches = [
+            upload(preprocess(train_x[i:i + BATCH])) for i in range(0, len(train_x), BATCH)
+        ]
+        precise = BNRefresher(module)(
+            None, stat_batches, generator=torch.Generator(device="cuda").manual_seed(seed)
+        )
+    out["nondeterministic_ops"] = nondeterministic_ops(caught)
+    if out["nondeterministic_ops"]:
+        raise AssertionError(f"deeplab training ran {out['nondeterministic_ops']}")
+    out["loop_bscans_per_s"] = BATCH * DL_TRAIN_STEPS / out["loop_s"]
     losses = torch.stack(losses).cpu().numpy()
     first, last = float(losses[0]), float(losses[-1])
     out["losses_first_last"], out["steps"] = (first, last), int(state.step)
-
-    vx, vy = fixed[0]
-    val_loss, val_metric = evaluate(state, vx, vy)
     out["eval_ms"] = time_cuda(lambda: evaluate(state, vx, vy), iters=2, reps=3)
     out["val_loss"], out["val_metric"] = float(val_loss), float(val_metric)
-    stat_batches = [upload(preprocess(train_x[i:i + BATCH])) for i in range(0, len(train_x), BATCH)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    precise = BNRefresher(module)(
-        None, stat_batches, generator=torch.Generator(device="cuda").manual_seed(seed)
-    )
+    BNRefresher(module)(None, stat_batches)
     torch.cuda.synchronize()
     out["bn_refresh_ms"] = (time.perf_counter() - t0) * 1e3
     print(
-        f"deeplab train: {out['steps']} steps at batch {BATCH} x {H}x{W}, loss {first:.4f} -> "
+        f"deeplab train: {out['steps']} steps at batch {BATCH} x {H}x{W} under deterministic "
+        f"algorithms (ops without a deterministic kernel: none), loss {first:.4f} -> "
         f"{last:.4f}; eval loss {out['val_loss']:.4f}, dice_coef_macro {out['val_metric']:.4f}"
     )
     if not (np.isfinite(losses).all() and last < first):
@@ -2027,7 +2190,7 @@ def phase_deeplab_path(rng, seed: int, volume: np.ndarray) -> dict:
     del serving, module
     torch.cuda.empty_cache()
     out["step_check"] = deeplab_step_card_vs_cpu(rng, seed)
-    out["train"] = deeplab_train(rng, seed)
+    out["train"] = deeplab_train(seed)
     out["_trained"] = out["train"].pop("_trained")
     out["launches"] += out["train"]["served_launches"]
     torch.cuda.empty_cache()
@@ -2390,23 +2553,37 @@ def bf16_serving_times(serving: dict, forward, x, batch) -> dict:
 def bf16_step_card_vs_cpu(rng, seed: int) -> dict:
     """One bfloat16 train step of the full-width U-Net at batch 2 of
     128x256 on the card and on the CPU, from the same weights, batch and
-    dropout mask; and the CPU float64 step of the same weights."""
-    from oct_image_segmentation_models_torch.models import get_model_class
-    from oct_image_segmentation_models_torch.models import unet as unet_module
-
-    kw = dict(
-        input_channels=1, num_classes=NUM_CLASSES, image_height=CHECK_H,
-        image_width=CHECK_W, start_neurons=32, pool_layers=4, conv_layers=2,
-    )
-    card = get_model_class("unet")(**kw, dtype="bfloat16").build_model(
+    dropout mask, and the CPU float64 step of the same weights, through
+    the forward that ``train_forward_impl="auto"`` resolves to (the s2d
+    training forward) and through the parity module."""
+    card = unet_container(CHECK_H, CHECK_W, dtype="bfloat16").build_model(
         generator=torch.Generator().manual_seed(seed + 5), device="cuda"
     )
-    initial = copy.deepcopy(card).cpu()
-    reference = get_model_class("unet")(**kw).build_model(device="cpu")
+    _, kind = auto_forward(card, CHECK_H, CHECK_W)
+    print(f"bf16 step check: train_forward_impl='auto' resolved to {kind} at {CHECK_H}x{CHECK_W}")
+    if kind != "s2d":
+        raise AssertionError(f"'auto' resolved to {kind} for the bfloat16 U-Net")
+    initial = card.cpu()
+    if not all(p.dtype == torch.float32 for p in initial.parameters()):
+        raise AssertionError("the bfloat16 module's parameters are not float32")
+    reference = check_size_unet(0, device="cpu")
     reference.load_state_dict(initial.state_dict())
     images, labels = layered_dataset(rng, CHECK_BATCH, CHECK_H, CHECK_W, NUM_CLASSES)
     x = torch.from_numpy(images.astype(np.float32) / 255.0)
     y = torch.from_numpy(labels)
+    return {
+        "auto_kind": kind,
+        **{k: bf16_step_gate(k, initial, reference, x, y, seed) for k in (kind, "parity")},
+    }
+
+
+def bf16_step_gate(kind: str, initial, reference, x, y, seed: int) -> dict:
+    """:func:`bf16_step_card_vs_cpu` for one forward, ``kind`` "s2d" or
+    "parity"; ``reference`` is the float32 module of ``initial``'s
+    weights."""
+    from oct_image_segmentation_models_torch.models import unet as unet_module
+    from oct_image_segmentation_models_torch.ops.s2d_train import S2DTrainForward
+
     masks = {}
 
     def shared_mask(t, generator):
@@ -2417,20 +2594,19 @@ def bf16_step_card_vs_cpu(rng, seed: int) -> dict:
 
     def run(module):
         dev = next(module.parameters()).device
-        state, step, _ = _train_objects(module, seed)
+        forward = S2DTrainForward(module) if kind == "s2d" else module
+        state, step, _ = _train_objects(forward, seed)
         _, loss, _ = step(state, x.to(dev), y.to(dev), None)
         return float(loss), {k: p.grad.detach().cpu().double() for k, p in module.named_parameters()}
 
     drawn = unet_module.dropout_mask
     unet_module.dropout_mask = shared_mask
     try:
-        l_card, g_card = run(card)
-        l_cpu, g_cpu = run(initial)
-        _, g64 = run(reference.double())
+        l_card, g_card = run(copy.deepcopy(initial).cuda())
+        l_cpu, g_cpu = run(copy.deepcopy(initial))
+        _, g64 = run(copy.deepcopy(reference).double())
     finally:
         unet_module.dropout_mask = drawn
-    if not all(p.dtype == torch.float32 for p in card.parameters()):
-        raise AssertionError("the bfloat16 module's parameters are not float32")
 
     def rel(a, b):
         return float((a - b).norm() / b.norm())
@@ -2440,7 +2616,7 @@ def bf16_step_card_vs_cpu(rng, seed: int) -> dict:
         if k.startswith("blocks.") and k.endswith("conv.bias"):
             continue  # exact gradient 0 (BatchNorm takes the mean out)
         if not torch.isfinite(g_card[k]).all():
-            raise AssertionError(f"bf16 card gradient {k} not finite")
+            raise AssertionError(f"bf16 {kind} card gradient {k} not finite")
         r = rel(g_card[k], g_cpu[k])
         if k.startswith("head."):
             worst_head = max(worst_head, r)
@@ -2451,7 +2627,7 @@ def bf16_step_card_vs_cpu(rng, seed: int) -> dict:
     loss_err = abs(l_card - l_cpu) / abs(l_cpu)
     mean_card, mean_cpu = float(np.mean(err_card)), float(np.mean(err_cpu))
     print(
-        f"bf16 train step card vs CPU (start_neurons 32, batch {CHECK_BATCH} x "
+        f"bf16 train step card vs CPU ({kind} forward, start_neurons 32, batch {CHECK_BATCH} x "
         f"{CHECK_H}x{CHECK_W}): loss {l_card:.6f} / {l_cpu:.6f} (rel {loss_err:.2e}, tolerance "
         f"{BF16_LOSS_RTOL:g}); gradients card vs CPU relative L2: worst {worst[1]:.3f} "
         f"({worst[0]}, tolerance {BF16_GRAD_REL_L2:g}), head {worst_head:.2e} (tolerance "
@@ -2459,11 +2635,11 @@ def bf16_step_card_vs_cpu(rng, seed: int) -> dict:
         f"{mean_card:.4f}, CPU bfloat16 {mean_cpu:.4f} (ratio <= {BF16_ACCURACY_RATIO:g})"
     )
     if not (np.isfinite(l_card) and loss_err <= BF16_LOSS_RTOL):
-        raise AssertionError(f"bf16 card train-step loss {l_card} off the CPU's {l_cpu}")
+        raise AssertionError(f"bf16 {kind} card train-step loss {l_card} off the CPU's {l_cpu}")
     if worst[1] > BF16_GRAD_REL_L2 or worst_head > BF16_HEAD_GRAD_REL_L2:
-        raise AssertionError(f"bf16 card gradients off the CPU's: {worst}, head {worst_head}")
+        raise AssertionError(f"bf16 {kind} card gradients off the CPU's: {worst}, head {worst_head}")
     if mean_card > BF16_ACCURACY_RATIO * mean_cpu:
-        raise AssertionError(f"bf16 card gradients less accurate: {mean_card} vs {mean_cpu}")
+        raise AssertionError(f"bf16 {kind} card gradients less accurate: {mean_card} vs {mean_cpu}")
     return {
         "loss_rel_err": loss_err,
         "grad_worst_rel_l2": worst[1],
@@ -2477,16 +2653,18 @@ def bf16_step_card_vs_cpu(rng, seed: int) -> dict:
 def bf16_train(rng, seed: int) -> dict:
     """The bench's U-Net with ``dtype="bfloat16"`` trained
     ``BF16_TRAIN_STEPS`` steps at batch 8 of 512x1024 (focal + Dice, Adam
-    1e-3): ms per step, split, FLOPs and peak memory; the loss must fall."""
-    from oct_image_segmentation_models_torch.models import get_model_class
-
-    container = get_model_class("unet")(
-        input_channels=1, num_classes=NUM_CLASSES, image_height=H, image_width=W,
-        start_neurons=32, pool_layers=4, conv_layers=2, dtype="bfloat16",
-    )
+    1e-3) through the forward that ``train_forward_impl="auto"`` resolves
+    to (the s2d training forward): ms per step, split, FLOPs and peak
+    memory, and the parity step timed beside it in turns; the loss must
+    fall."""
+    container = unet_container(dtype="bfloat16")
     module = container.build_model(generator=torch.Generator().manual_seed(seed + 7), device="cuda")
     if module.compute_dtype != torch.bfloat16:
         raise AssertionError("the bfloat16 container built another module")
+    forward, kind = auto_forward(module)
+    print(f"bf16 train: train_forward_impl='auto' resolved to {kind} at {H}x{W}")
+    if kind != "s2d":
+        raise AssertionError(f"'auto' resolved to {kind} for the bfloat16 U-Net")
     preprocess = container.get_preprocess_input_fn()
     images, labels = layered_dataset(rng, BF16_TRAIN_IMAGES, H, W, NUM_CLASSES)
     batches = [
@@ -2496,7 +2674,7 @@ def bf16_train(rng, seed: int) -> dict:
         )
         for i in range(0, BF16_TRAIN_IMAGES, BATCH)
     ]
-    state, step, _ = _train_objects(module, seed)
+    state, step, _ = _train_objects(forward, seed)
     generator = torch.Generator(device="cuda").manual_seed(seed)
     losses = []
     for i in range(BF16_TRAIN_WARMUP):
@@ -2518,8 +2696,19 @@ def bf16_train(rng, seed: int) -> dict:
     out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     out["bscans_per_s"] = BATCH / out["step_ms"] * 1e3
     flop = train_flop(step, state, *batches[0], generator)
-    done = BF16_TRAIN_WARMUP + BF16_TRAIN_TIMED + 1  # the FLOP count took a step
-    for i in range(done, BF16_TRAIN_STEPS):
+    # The parity step beside it, timed in turns from the same weights.
+    parity_module = copy.deepcopy(module)
+    p_state, p_step, _ = _train_objects(parity_module, seed)
+    ms, _ = time_in_turns({kind: (state, step), "parity": (p_state, p_step)}, batches, generator)
+    del parity_module, p_state, p_step
+    out["auto_kind"] = kind
+    out["turns_step_ms"] = {name: min(v) for name, v in ms.items()}
+    out["turns_step_ms_runs"] = ms
+    print(
+        f"bf16 train: the {kind} step {out['turns_step_ms'][kind]:.3f} ms against the parity "
+        f"step's {out['turns_step_ms']['parity']:.3f} ms, timed in turns"
+    )
+    for i in range(state.step, BF16_TRAIN_STEPS):
         losses.append(step(state, *batches[i % len(batches)], generator)[1])
     losses = torch.stack(losses).cpu().numpy()
     n = len(batches)
@@ -2680,33 +2869,94 @@ def deterministic_algorithms():
 
 
 def nondeterministic_ops(caught) -> list:
-    return sorted({
-        str(w.message).split(" does not have a deterministic")[0]
-        for w in caught
-        if "does not have a deterministic" in str(w.message)
-    })
+    """The ops that warned, under :func:`deterministic_algorithms`, that
+    they have no deterministic kernel (cuBLAS without a fixed workspace
+    among them)."""
+    ops = set()
+    for w in caught:
+        text = str(w.message)
+        if "does not have a deterministic" in text:
+            ops.add(text.split(" does not have a deterministic")[0])
+        elif "CUBLAS_WORKSPACE_CONFIG" in text:
+            ops.add("cuBLAS")
+    return sorted(ops)
 
 
-def world1_runs(base, batches, mesh, seed: int) -> dict:
+def kind_forward(module, kind: str, h: int = H, w: int = W):
+    """The forward that trains ``module`` as ``kind``: the module itself
+    for "parity", else the forward ``"auto"`` resolves to at ``h`` x
+    ``w``, which must be of that kind."""
+    if kind == "parity":
+        return module
+    forward, got = auto_forward(module, h, w)
+    if got != kind:
+        raise AssertionError(f"'auto' resolved to {got}, not {kind}")
+    return forward
+
+
+def world1_runs(base, batches, mesh, seed: int, kind: str) -> dict:
     """``DP_STEPS`` steps through DDP over ``mesh`` and through the
-    one-device step, each from ``base``'s weights with the same batches
-    and dropout generator -> {name: (module, state, step, generator,
-    losses)}."""
+    one-device step, each over ``kind``'s forward, from ``base``'s weights
+    with the same batches and dropout generator -> {name: (module, state,
+    step, generator, losses)}."""
     runs = {}
     for name, kwargs in (("ddp", {"mesh": mesh, "impl": "shard_map"}), ("one", {})):
         module = copy.deepcopy(base)
-        state, step, _ = _train_objects(module, seed, **kwargs)
+        state, step, _ = _train_objects(kind_forward(module, kind), seed, **kwargs)
         gen = torch.Generator(device="cuda").manual_seed(seed + 11)
         losses = [step(state, x, y, gen)[1] for x, y in batches]
         runs[name] = (module, state, step, gen, torch.stack(losses).cpu().numpy())
     return runs
 
 
+def world1_kind(base, batches, mesh, seed: int, kind: str) -> dict:
+    """:func:`dp_world_of_one` for ``kind``'s forward."""
+    out = {}
+    with deterministic_algorithms() as caught:
+        runs = world1_runs(base, batches, mesh, seed, kind)
+    out["nondeterministic_ops"] = nondeterministic_ops(caught)
+    want = runs["one"][0].state_dict()
+    got = runs["ddp"][0].state_dict()
+    for part, keys in (
+        ("param", [k for k in want if "running" not in k]),
+        ("stat", [k for k in want if "running" in k]),
+    ):
+        out[part] = max(float((got[k] - want[k]).abs().max()) for k in keys)
+    out["loss_max_abs_err"] = float(np.max(np.abs(runs["ddp"][4] - runs["one"][4])))
+    if out["param"] or out["stat"] or out["loss_max_abs_err"]:
+        raise AssertionError(f"DDP at world 1 over {kind} is not the one-device step: {out}")
+    # Times in turns (one, ddp, ddp, one, ...), default algorithms.
+    times = {"one": [], "ddp": []}
+    x, y = batches[-1]
+    for name in ["one", "ddp", "ddp", "one"] * (DP_TIMED // 2):
+        _, state, step, gen, _ = runs[name]
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, x, y, gen)
+        stop.record()
+        stop.synchronize()
+        times[name].append(start.elapsed_time(stop))
+    out["one_device_step_ms"] = statistics.median(times["one"])
+    out["ddp_world1_step_ms"] = statistics.median(times["ddp"])
+    print(
+        f"dp world of one (NCCL, DDP over the {kind} forward, batch {BATCH} x {H}x{W}, "
+        f"{DP_STEPS} Adam steps under deterministic algorithms) vs the one-device step, bit for "
+        f"bit: params max |d| {out['param']:.2e}, running stats {out['stat']:.2e}, losses "
+        f"{out['loss_max_abs_err']:.2e} (tolerance 0); ops without a deterministic kernel: "
+        f"{out['nondeterministic_ops'] or 'none'}; step {out['ddp_world1_step_ms']:.3f} ms with "
+        f"DDP, {out['one_device_step_ms']:.3f} ms without"
+    )
+    return out
+
+
 def dp_world_of_one(rng, model, seed: int) -> dict:
     """``impl="shard_map"`` (DDP) over a world of one on NCCL, at full
     width, against the one-device step from the same weights, batches and
-    dropout generator, both under deterministic algorithms; then both
-    timed in turns with the default algorithms."""
+    dropout generator, under deterministic algorithms, over the forward
+    ``"auto"`` resolves to and over the parity module; then each pair
+    timed in turns with the default algorithms -> {"auto_kind": kind,
+    kind: results, "parity": results}."""
     import tempfile
     from datetime import timedelta
 
@@ -2715,6 +2965,10 @@ def dp_world_of_one(rng, model, seed: int) -> dict:
     from oct_image_segmentation_models_torch.parallel import mesh as mesh_lib
 
     container, base = model
+    out = {"auto_kind": auto_forward(base)[1]}
+    print(f"dp world of one: train_forward_impl='auto' resolved to {out['auto_kind']} at {H}x{W}")
+    if out["auto_kind"] != "s2d":
+        raise AssertionError(f"'auto' resolved to {out['auto_kind']} for the bench's U-Net")
     images, labels = layered_dataset(rng, BATCH * DP_STEPS, H, W, NUM_CLASSES)
     batches = [
         (
@@ -2723,7 +2977,6 @@ def dp_world_of_one(rng, model, seed: int) -> dict:
         )
         for i in range(0, BATCH * DP_STEPS, BATCH)
     ]
-    out = {}
     with tempfile.TemporaryDirectory() as tmp:
         mesh_lib.init_distributed(
             "cuda", rank=0, world_size=1, init_method=f"file://{tmp}/store",
@@ -2733,48 +2986,78 @@ def dp_world_of_one(rng, model, seed: int) -> dict:
             mesh = mesh_lib.create_mesh(device="cuda:0")
             if dist.get_backend() != "nccl" or mesh.world != 1:
                 raise AssertionError(f"world of one on {dist.get_backend()}, {mesh.world}")
-            with deterministic_algorithms() as caught:
-                runs = world1_runs(base, batches, mesh, seed)
-            out["nondeterministic_ops"] = nondeterministic_ops(caught)
-            want = runs["one"][0].state_dict()
-            got = runs["ddp"][0].state_dict()
-            for kind, keys in (
-                ("param", [k for k in want if "running" not in k]),
-                ("stat", [k for k in want if "running" in k]),
-            ):
-                out[kind] = max(float((got[k] - want[k]).abs().max()) for k in keys)
-            out["loss_max_abs_err"] = float(np.max(np.abs(runs["ddp"][4] - runs["one"][4])))
-            if out["param"] or out["stat"] or out["loss_max_abs_err"]:
-                raise AssertionError(f"DDP at world 1 is not the one-device step: {out}")
-            # Times in turns (one, ddp, ddp, one, ...), default algorithms.
-            times = {"one": [], "ddp": []}
-            x, y = batches[-1]
-            for name in ["one", "ddp", "ddp", "one"] * (DP_TIMED // 2):
-                _, state, step, gen, _ = runs[name]
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                start.record()
-                step(state, x, y, gen)
-                stop.record()
-                stop.synchronize()
-                times[name].append(start.elapsed_time(stop))
-            out["one_device_step_ms"] = statistics.median(times["one"])
-            out["ddp_world1_step_ms"] = statistics.median(times["ddp"])
+            for kind in (out["auto_kind"], "parity"):
+                out[kind] = world1_kind(base, batches, mesh, seed, kind)
+                torch.cuda.empty_cache()
         finally:
             dist.destroy_process_group()
-    print(
-        f"dp world of one (NCCL, DDP, batch {BATCH} x {H}x{W}, {DP_STEPS} Adam steps under "
-        f"deterministic algorithms) vs the one-device step, bit for bit: params max |d| "
-        f"{out['param']:.2e}, running stats {out['stat']:.2e}, losses {out['loss_max_abs_err']:.2e} "
-        f"(tolerance 0); ops without a deterministic kernel: "
-        f"{out['nondeterministic_ops'] or 'none'}; step {out['ddp_world1_step_ms']:.3f} ms with "
-        f"DDP, {out['one_device_step_ms']:.3f} ms without"
-    )
     return out
 
 
 def _dp_rank_seed(seed: int, rank: int) -> int:
     return seed * 100 + rank
+
+
+def dp_rank_training(rank: int, mesh, module, inputs: dict, seed: int, kind: str) -> dict:
+    """:func:`dp_rank`'s training checks over ``kind``'s forward: the
+    DDP step, the spmd steps (float64 at the check size, float32 at full
+    width, timed) and the cross-rank refresher."""
+    from oct_image_segmentation_models_torch.ops.bn_refresh import BNRefresher
+
+    out = {}
+    # One step from common weights, each rank on its rows (DDP over the
+    # forward).
+    rows = mesh.local_rows(BATCH)
+    train_module = copy.deepcopy(module)
+    forward = kind_forward(train_module, kind)
+    state, step, _ = _train_objects(forward, seed, mesh=mesh, impl="shard_map")
+    gen = torch.Generator(device="cuda").manual_seed(_dp_rank_seed(seed, rank))
+    x, y = inputs["x"][rows].cuda(), inputs["y"][rows].cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loss, metric = step(state, x, y, gen)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    out["loss"], out["metric"] = float(loss), float(metric)
+    out["grads"] = {k: p.grad.cpu() for k, p in train_module.named_parameters()}
+    out["stats"] = {k: v.cpu() for k, v in train_module.state_dict().items() if "running" in k}
+    del train_module, forward, state, step
+
+    # impl="spmd": the one-device step on the global batch (every rank's
+    # randoms from one stream), in float64 at the check size, then in
+    # float32 at full width, then timed.
+    rows64 = mesh.world_rows(inputs["x64"].shape[0])
+    m64 = check_size_unet(seed + 10).double()
+    out["spmd64"] = step64(
+        kind_forward(m64, kind, CHECK_H, CHECK_W), m64, inputs["x64"][rows64].cuda(),
+        inputs["y64"][rows64].cuda(), seed + 11, mesh, "spmd",
+    )
+    del m64
+    spmd_module = copy.deepcopy(module)
+    state, step, _ = _train_objects(kind_forward(spmd_module, kind), seed, mesh=mesh, impl="spmd")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    rows = mesh.world_rows(BATCH)
+    x, y = inputs["x"][rows].cuda(), inputs["y"][rows].cuda()
+    _, loss, metric = step(state, x, y, gen)
+    out["spmd32"] = (
+        float(loss), float(metric), {k: v.cpu() for k, v in spmd_module.state_dict().items()},
+    )
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED):
+        step(state, x, y, gen)
+    torch.cuda.synchronize()
+    out["spmd_step_ms"] = (time.perf_counter() - t0) / DP_TIMED * 1e3
+    del spmd_module, state, step
+
+    # The cross-rank precise-BN refresher on this rank's batches.
+    refresher = BNRefresher(kind_forward(module, kind), deterministic=True)
+    batches = [b.cuda() for b in inputs["stat_x"][rank]]
+    out["refreshed"] = {
+        k: v.cpu() for k, v in refresher(None, batches, cross_process=True).items()
+    }
+    torch.cuda.empty_cache()
+    return out
 
 
 def dp_rank(rank: int, workdir: str, seed: int) -> None:
@@ -2787,7 +3070,6 @@ def dp_rank(rank: int, workdir: str, seed: int) -> None:
 
     from oct_image_segmentation_models_torch.common.model_io import LoadedModel
     from oct_image_segmentation_models_torch.models.unet import fold_batchnorm
-    from oct_image_segmentation_models_torch.ops.bn_refresh import BNRefresher
     from oct_image_segmentation_models_torch.ops.inference import make_fused_pipeline
     from oct_image_segmentation_models_torch.parallel import mesh as mesh_lib
     from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
@@ -2803,58 +3085,12 @@ def dp_rank(rank: int, workdir: str, seed: int) -> None:
         container, module = build_unet(seed)
         module.load_state_dict(inputs["weights"])
         out = {"rank": mesh.rank, "node": mesh.node, "local_rank": mesh.local_rank}
-
-        # One step from common weights, each rank on its rows.
-        rows = mesh.local_rows(BATCH)
-        train_module = copy.deepcopy(module)
-        state, step, _ = _train_objects(train_module, seed, mesh=mesh, impl="shard_map")
-        gen = torch.Generator(device="cuda").manual_seed(_dp_rank_seed(seed, rank))
-        x, y = inputs["x"][rows].cuda(), inputs["y"][rows].cuda()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, loss, metric = step(state, x, y, gen)
-        torch.cuda.synchronize()
-        out["step_s"] = time.perf_counter() - t0
-        out["loss"], out["metric"] = float(loss), float(metric)
-        out["grads"] = {k: p.grad.cpu() for k, p in train_module.named_parameters()}
-        out["stats"] = {
-            k: v.cpu() for k, v in train_module.state_dict().items() if "running" in k
-        }
-        del train_module, state, step
-
-        # impl="spmd": the one-device step on the global batch (every
-        # rank's randoms from one stream), in float64 at the check size,
-        # then in float32 at full width, then timed.
-        rows64 = mesh.world_rows(inputs["x64"].shape[0])
-        m64 = check_size_unet(seed + 10).double()
-        out["spmd64"] = step64(
-            m64, m64, inputs["x64"][rows64].cuda(), inputs["y64"][rows64].cuda(), seed + 11,
-            mesh, "spmd",
-        )
-        del m64
-        spmd_module = copy.deepcopy(module)
-        state, step, _ = _train_objects(spmd_module, seed, mesh=mesh, impl="spmd")
-        gen = torch.Generator(device="cuda").manual_seed(seed + 12)
-        rows = mesh.world_rows(BATCH)
-        x, y = inputs["x"][rows].cuda(), inputs["y"][rows].cuda()
-        _, loss, metric = step(state, x, y, gen)
-        out["spmd32"] = (
-            float(loss), float(metric),
-            {k: v.cpu() for k, v in spmd_module.state_dict().items()},
-        )
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(DP_TIMED):
-            step(state, x, y, gen)
-        torch.cuda.synchronize()
-        out["spmd_step_ms"] = (time.perf_counter() - t0) / DP_TIMED * 1e3
-        del spmd_module, state, step
-
-        # The cross-rank precise-BN refresher on this rank's batches.
-        refresher = BNRefresher(module, deterministic=True)
-        batches = [b.cuda() for b in inputs["stat_x"][rank]]
-        out["refreshed"] = {
-            k: v.cpu() for k, v in refresher(None, batches, cross_process=True).items()
+        # Training through the forward "auto" resolves to, then through
+        # the parity module.
+        out["auto_kind"] = auto_forward(module)[1]
+        out["train"] = {
+            kind: dp_rank_training(rank, mesh, module, inputs, seed, kind)
+            for kind in (out["auto_kind"], "parity")
         }
 
         # Serving: VolumeSegmenter over the mesh (s2d, B2) and the folded
@@ -2883,6 +3119,141 @@ def dp_rank(rank: int, workdir: str, seed: int) -> None:
         dist.destroy_process_group()
 
 
+def dp_training_checks(ranks: list, base, inputs: dict, stat_x, seed: int, kind: str) -> dict:
+    """The ranks' training results over ``kind``'s forward
+    (:func:`dp_rank_training`, one per rank) against their one-process
+    definitions on the card."""
+    from oct_image_segmentation_models_torch.ops.bn_refresh import BNRefresher
+
+    out = {}
+    # The per-replica definition: the one-device step on each rank's rows
+    # with its generator, then the means.
+    local = []
+    for r in range(DP_RANKS):
+        module = copy.deepcopy(base)
+        state, step, _ = _train_objects(kind_forward(module, kind), seed)
+        gen = torch.Generator(device="cuda").manual_seed(_dp_rank_seed(seed, r))
+        rows = slice(r * DP_LOCAL_BATCH, (r + 1) * DP_LOCAL_BATCH)
+        _, loss, metric = step(state, inputs["x"][rows].cuda(), inputs["y"][rows].cuda(), gen)
+        local.append((
+            float(loss), float(metric),
+            {k: p.grad.cpu() for k, p in module.named_parameters()},
+            {k: v.cpu() for k, v in module.state_dict().items() if "running" in k},
+        ))
+        del module, state, step
+    want_loss = sum(x[0] for x in local) / DP_RANKS
+    want_metric = sum(x[1] for x in local) / DP_RANKS
+    got = ranks[0]
+    for other in ranks[1:]:
+        for k in got["grads"]:
+            if not torch.equal(got["grads"][k], other["grads"][k]):
+                raise AssertionError(f"ranks hold different averaged gradients for {k}")
+        if (got["loss"], got["metric"]) != (other["loss"], other["metric"]):
+            raise AssertionError("ranks hold different mean losses")
+    loss_err = abs(got["loss"] - want_loss) / abs(want_loss)
+    metric_err = abs(got["metric"] - want_metric) / max(abs(want_metric), 1e-12)
+    gmax = max(float(g.abs().max()) for g in local[0][2].values())
+    grad_err, zero_grad = 0.0, 0.0
+    for k, g in got["grads"].items():
+        want = sum(x[2][k] for x in local) / DP_RANKS
+        if _pre_bn_bias(k):
+            zero_grad = max(zero_grad, float(g.abs().max()), float(want.abs().max()))
+            continue
+        err = float((g - want).abs().max()) / (
+            STEP_GRAD_RTOL * float(want.abs().max()) + STEP_GRAD_ATOL
+        )
+        grad_err = max(grad_err, err)
+    stat_err = max(
+        float((got["stats"][k] - sum(x[3][k] for x in local) / DP_RANKS).abs().max())
+        for k in got["stats"]
+    )
+    out.update(
+        step_loss_rel_err=loss_err, step_metric_rel_err=metric_err,
+        step_grad_worst_of_allowance=grad_err, step_zero_grad_share=zero_grad / gmax,
+        step_stat_max_abs_err=stat_err, rank_step_s=[r["step_s"] for r in ranks],
+    )
+    print(
+        f"dp two ranks on one card ({kind} forward, gloo, local batch {DP_LOCAL_BATCH} x "
+        f"{H}x{W}), one step against the per-replica definition: loss {got['loss']:.6f} / {want_loss:.6f} (rel "
+        f"{loss_err:.2e}), metric rel {metric_err:.2e} (tolerance {DP_LOSS_RTOL:g}), gradients "
+        f"worst tensor {grad_err:.3f} of {STEP_GRAD_RTOL:g} * max |g| + {STEP_GRAD_ATOL:g}, "
+        f"pre-BN conv biases {zero_grad / gmax:.2e} of max |g| (bound {ZERO_GRAD_SHARE:g}), "
+        f"running stats max |d| {stat_err:.2e} (tolerance {DP_STAT_ATOL:g})"
+    )
+    if loss_err > DP_LOSS_RTOL or metric_err > DP_LOSS_RTOL:
+        raise AssertionError(f"two-rank loss/metric off the per-replica mean: {loss_err}, {metric_err}")
+    if grad_err > 1 or zero_grad > ZERO_GRAD_SHARE * gmax or stat_err > DP_STAT_ATOL:
+        raise AssertionError(
+            f"two-rank {kind} step off the per-replica definition: {grad_err}, {stat_err}"
+        )
+
+    # impl="spmd" against the one-device step on the global batch, from
+    # the same weights and dropout stream; every rank's state bit-equal.
+    for name, index in (("spmd64", 3), ("spmd32", 2)):
+        a, b = ranks[0][name][index], ranks[1][name][index]
+        diff = [k for k in a if not torch.equal(a[k], b[k])]
+        if diff:
+            raise AssertionError(f"{name}: the ranks' states differ in {diff[:4]}")
+    m64 = check_size_unet(seed + 10).double()
+    want64 = step64(
+        kind_forward(m64, kind, CHECK_H, CHECK_W), m64, inputs["x64"].cuda(),
+        inputs["y64"].cuda(), seed + 11,
+    )
+    del m64
+    out["spmd64"] = compare64(ranks[0]["spmd64"], want64)
+    module = copy.deepcopy(base)
+    state, step, _ = _train_objects(kind_forward(module, kind), seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    _, loss, metric = step(state, inputs["x"].cuda(), inputs["y"].cuda(), gen)
+    got_loss, got_metric, got_sd = ranks[0]["spmd32"]
+    spmd_loss = abs(got_loss - float(loss)) / abs(float(loss))
+    spmd_metric = abs(got_metric - float(metric)) / max(abs(float(metric)), 1e-12)
+    spmd_stat = max(
+        float((got_sd[k] - v.cpu()).abs().max()) / max(float(v.abs().max()), 1e-12)
+        for k, v in module.state_dict().items() if "running" in k
+    )
+    del module, state, step
+    out.update(
+        spmd32_loss_rel=spmd_loss, spmd32_metric_rel=spmd_metric,
+        spmd32_stat_rel=spmd_stat, spmd_step_ms=[r["spmd_step_ms"] for r in ranks],
+    )
+    print(
+        f"dp spmd over {DP_RANKS} gloo ranks on one card ({kind} forward): float64 step "
+        f"(global batch {DP_RANKS * CHECK_BATCH} x {CHECK_H}x{CHECK_W}) vs the one-device step: loss rel "
+        f"{out['spmd64']['loss_rel']:.2e}, gradients worst {out['spmd64']['grad_worst']:.2e} "
+        f"of the tensor's max ({out['spmd64']['grad_worst_tensor']}), statistics max |d| "
+        f"{out['spmd64']['stat_max_abs']:.2e}; float32 step (global batch {BATCH} x {H}x{W}): "
+        f"loss rel {spmd_loss:.2e}, statistics {spmd_stat:.2e} of the tensor's max "
+        f"(tolerance {DP_SPMD_RTOL:g}), the thresholded metric rel {spmd_metric:.2e} (not "
+        f"gated: a pixel at 0.5 flips it); ranks' states "
+        f"bit-equal; {out['spmd_step_ms'][0]:.3f} ms per spmd step on rank 0 (two ranks "
+        f"share one card over gloo: no scaling number)"
+    )
+    check64(out["spmd64"], f"{kind} spmd against the one-device step")
+    if not (spmd_loss <= DP_SPMD_RTOL and spmd_stat <= DP_SPMD_RTOL):
+        raise AssertionError(
+            f"float32 {kind} spmd step off the one-device step: {spmd_loss}, {spmd_stat}"
+        )
+
+    # The cross-rank refresher against the one-process one over all batches.
+    batches = [b.cuda() for b in stat_x.reshape(-1, DP_LOCAL_BATCH, H, W, 1)]
+    want_stats = BNRefresher(kind_forward(base, kind), deterministic=True)(None, batches)
+    refresh_err = 0.0
+    for k, w in want_stats.items():
+        g = got["refreshed"][k]
+        excess = (g - w.cpu()).abs() - (DP_REFRESH_ATOL + DP_REFRESH_RTOL * w.cpu().abs())
+        refresh_err = max(refresh_err, float((g - w.cpu()).abs().max()))
+        if float(excess.max()) > 0:
+            raise AssertionError(f"{kind} cross-rank refresher off the one-process one at {k}")
+    out["refresh_max_abs_err"] = refresh_err
+    print(
+        f"dp cross-rank BNRefresher ({kind} forward, {DP_RANKS} x {DP_STAT_BATCHES} batches of "
+        f"{DP_LOCAL_BATCH}) vs the one-process refresher over all of them: max |d| "
+        f"{refresh_err:.2e} (tolerance {DP_REFRESH_ATOL:g} + {DP_REFRESH_RTOL:g} * |v|)"
+    )
+    return out
+
+
 def dp_two_ranks(rng, model, volume: np.ndarray, seed: int) -> dict:
     """``DP_RANKS`` ranks on the card over gloo, spawned, against the
     per-replica definition computed here on the card."""
@@ -2891,7 +3262,6 @@ def dp_two_ranks(rng, model, volume: np.ndarray, seed: int) -> dict:
 
     from oct_image_segmentation_models_torch.common.model_io import LoadedModel
     from oct_image_segmentation_models_torch.models.unet import fold_batchnorm
-    from oct_image_segmentation_models_torch.ops.bn_refresh import BNRefresher
     from oct_image_segmentation_models_torch.ops.inference import make_fused_pipeline
     from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
 
@@ -2934,124 +3304,15 @@ def dp_two_ranks(rng, model, volume: np.ndarray, seed: int) -> dict:
             raise AssertionError(f"dp ranks exited with {codes} (a failure or a hang)")
         ranks = [torch.load(f"{workdir}/rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
 
-    # The per-replica definition: the one-device step on each rank's rows
-    # with its generator, then the means.
-    local = []
-    for r in range(DP_RANKS):
-        module = copy.deepcopy(base)
-        state, step, _ = _train_objects(module, seed)
-        gen = torch.Generator(device="cuda").manual_seed(_dp_rank_seed(seed, r))
-        rows = slice(r * DP_LOCAL_BATCH, (r + 1) * DP_LOCAL_BATCH)
-        _, loss, metric = step(state, inputs["x"][rows].cuda(), inputs["y"][rows].cuda(), gen)
-        local.append((
-            float(loss), float(metric),
-            {k: p.grad.cpu() for k, p in module.named_parameters()},
-            {k: v.cpu() for k, v in module.state_dict().items() if "running" in k},
-        ))
-        del module, state, step
-    want_loss = sum(x[0] for x in local) / DP_RANKS
-    want_metric = sum(x[1] for x in local) / DP_RANKS
-    got = ranks[0]
-    for other in ranks[1:]:
-        for k in got["grads"]:
-            if not torch.equal(got["grads"][k], other["grads"][k]):
-                raise AssertionError(f"ranks hold different averaged gradients for {k}")
-        if (got["loss"], got["metric"]) != (other["loss"], other["metric"]):
-            raise AssertionError("ranks hold different mean losses")
-    loss_err = abs(got["loss"] - want_loss) / abs(want_loss)
-    metric_err = abs(got["metric"] - want_metric) / max(abs(want_metric), 1e-12)
-    gmax = max(float(g.abs().max()) for g in local[0][2].values())
-    grad_err, zero_grad = 0.0, 0.0
-    for k, g in got["grads"].items():
-        want = sum(x[2][k] for x in local) / DP_RANKS
-        if _pre_bn_bias(k):
-            zero_grad = max(zero_grad, float(g.abs().max()), float(want.abs().max()))
-            continue
-        err = float((g - want).abs().max()) / (
-            STEP_GRAD_RTOL * float(want.abs().max()) + STEP_GRAD_ATOL
+    kinds = [r["auto_kind"] for r in ranks]
+    print(f"dp two ranks: train_forward_impl='auto' resolved to {kinds} at {H}x{W}")
+    if kinds != ["s2d"] * DP_RANKS:
+        raise AssertionError(f"'auto' resolved to {kinds} on the ranks")
+    out["auto_kind"] = kinds[0]
+    for kind in (kinds[0], "parity"):
+        out[kind] = dp_training_checks(
+            [r["train"][kind] for r in ranks], base, inputs, stat_x, seed, kind
         )
-        grad_err = max(grad_err, err)
-    stat_err = max(
-        float((got["stats"][k] - sum(x[3][k] for x in local) / DP_RANKS).abs().max())
-        for k in got["stats"]
-    )
-    out.update(
-        step_loss_rel_err=loss_err, step_metric_rel_err=metric_err,
-        step_grad_worst_of_allowance=grad_err, step_zero_grad_share=zero_grad / gmax,
-        step_stat_max_abs_err=stat_err, rank_step_s=[r["step_s"] for r in ranks],
-    )
-    print(
-        f"dp two ranks on one card (gloo, local batch {DP_LOCAL_BATCH} x {H}x{W}), one step "
-        f"against the per-replica definition: loss {got['loss']:.6f} / {want_loss:.6f} (rel "
-        f"{loss_err:.2e}), metric rel {metric_err:.2e} (tolerance {DP_LOSS_RTOL:g}), gradients "
-        f"worst tensor {grad_err:.3f} of {STEP_GRAD_RTOL:g} * max |g| + {STEP_GRAD_ATOL:g}, "
-        f"pre-BN conv biases {zero_grad / gmax:.2e} of max |g| (bound {ZERO_GRAD_SHARE:g}), "
-        f"running stats max |d| {stat_err:.2e} (tolerance {DP_STAT_ATOL:g})"
-    )
-    if loss_err > DP_LOSS_RTOL or metric_err > DP_LOSS_RTOL:
-        raise AssertionError(f"two-rank loss/metric off the per-replica mean: {loss_err}, {metric_err}")
-    if grad_err > 1 or zero_grad > ZERO_GRAD_SHARE * gmax or stat_err > DP_STAT_ATOL:
-        raise AssertionError(f"two-rank step off the per-replica definition: {grad_err}, {stat_err}")
-
-    # impl="spmd" against the one-device step on the global batch, from
-    # the same weights and dropout stream; every rank's state bit-equal.
-    for name, index in (("spmd64", 3), ("spmd32", 2)):
-        a, b = ranks[0][name][index], ranks[1][name][index]
-        diff = [k for k in a if not torch.equal(a[k], b[k])]
-        if diff:
-            raise AssertionError(f"{name}: the ranks' states differ in {diff[:4]}")
-    m64 = check_size_unet(seed + 10).double()
-    want64 = step64(m64, m64, inputs["x64"].cuda(), inputs["y64"].cuda(), seed + 11)
-    del m64
-    out["spmd64"] = compare64(ranks[0]["spmd64"], want64)
-    module = copy.deepcopy(base)
-    state, step, _ = _train_objects(module, seed)
-    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
-    _, loss, metric = step(state, inputs["x"].cuda(), inputs["y"].cuda(), gen)
-    got_loss, got_metric, got_sd = ranks[0]["spmd32"]
-    spmd_loss = abs(got_loss - float(loss)) / abs(float(loss))
-    spmd_metric = abs(got_metric - float(metric)) / max(abs(float(metric)), 1e-12)
-    spmd_stat = max(
-        float((got_sd[k] - v.cpu()).abs().max()) / max(float(v.abs().max()), 1e-12)
-        for k, v in module.state_dict().items() if "running" in k
-    )
-    del module, state, step
-    out.update(
-        spmd32_loss_rel=spmd_loss, spmd32_metric_rel=spmd_metric,
-        spmd32_stat_rel=spmd_stat, spmd_step_ms=[r["spmd_step_ms"] for r in ranks],
-    )
-    print(
-        f"dp spmd over {DP_RANKS} gloo ranks on one card: float64 step (global batch "
-        f"{DP_RANKS * CHECK_BATCH} x {CHECK_H}x{CHECK_W}) vs the one-device step: loss rel "
-        f"{out['spmd64']['loss_rel']:.2e}, gradients worst {out['spmd64']['grad_worst']:.2e} "
-        f"of the tensor's max ({out['spmd64']['grad_worst_tensor']}), statistics max |d| "
-        f"{out['spmd64']['stat_max_abs']:.2e}; float32 step (global batch {BATCH} x {H}x{W}): "
-        f"loss rel {spmd_loss:.2e}, statistics {spmd_stat:.2e} of the tensor's max "
-        f"(tolerance {DP_SPMD_RTOL:g}), the thresholded metric rel {spmd_metric:.2e} (not "
-        f"gated: a pixel at 0.5 flips it); ranks' states "
-        f"bit-equal; {out['spmd_step_ms'][0]:.3f} ms per spmd step on rank 0 (two ranks "
-        f"share one card over gloo: no scaling number)"
-    )
-    check64(out["spmd64"], "spmd against the one-device step")
-    if not (spmd_loss <= DP_SPMD_RTOL and spmd_stat <= DP_SPMD_RTOL):
-        raise AssertionError(f"float32 spmd step off the one-device step: {spmd_loss}, {spmd_stat}")
-
-    # The cross-rank refresher against the one-process one over all batches.
-    batches = [b.cuda() for b in stat_x.reshape(-1, DP_LOCAL_BATCH, H, W, 1)]
-    want_stats = BNRefresher(base, deterministic=True)(None, batches)
-    refresh_err = 0.0
-    for k, w in want_stats.items():
-        g = got["refreshed"][k]
-        excess = (g - w.cpu()).abs() - (DP_REFRESH_ATOL + DP_REFRESH_RTOL * w.cpu().abs())
-        refresh_err = max(refresh_err, float((g - w.cpu()).abs().max()))
-        if float(excess.max()) > 0:
-            raise AssertionError(f"cross-rank refresher off the one-process one at {k}")
-    out["refresh_max_abs_err"] = refresh_err
-    print(
-        f"dp cross-rank BNRefresher ({DP_RANKS} x {DP_STAT_BATCHES} batches of "
-        f"{DP_LOCAL_BATCH}) vs the one-process refresher over all of them: max |d| "
-        f"{refresh_err:.2e} (tolerance {DP_REFRESH_ATOL:g} + {DP_REFRESH_RTOL:g} * |v|)"
-    )
 
     # Serving: every rank's gathered outputs against the one-rank paths at
     # the ranks' per-call batch, bit for bit.
@@ -3368,7 +3629,9 @@ def main(argv=None) -> int:
     # Its own random stream, so that the phases after it draw the inputs
     # they drew before it was added.
     s2d_train = phase_s2d_train_path(np.random.default_rng([args.seed, 10]), args.seed)
-    deeplab = phase_deeplab_path(rng, args.seed, volume)
+    # Its own random stream too (its step gate's allowance is set from a
+    # spread measured over seeds; tools/torch_deeplab_gate_probe.py).
+    deeplab = phase_deeplab_path(np.random.default_rng([args.seed, 11]), args.seed, volume)
     export = phase_export_path(model, args.seed, volume)
     bf16 = phase_bf16_path(rng, args.seed, volume, train.pop("_trained"), deeplab.pop("_trained"))
     dp = phase_dp_path(rng, model, volume, args.seed)
@@ -3454,13 +3717,20 @@ def main(argv=None) -> int:
         f"float32 CUDA cores ({times['b3_bound_fp32_by']})"
     )
     print(
-        f"[{card}] train step (batch {BATCH} x {H}x{W}, start_neurons 32, float32, TF32 "
+        f"[{card}] train step, the {train['auto_kind']} forward (train_forward_impl='auto'; "
+        f"batch {BATCH} x {H}x{W}, start_neurons 32, float32, TF32 "
         f"off, Adam, focal+Dice): {train['step_ms']:.3f} ms/step = "
         f"{train['bscans_per_s']:.2f} B-scans/s; {train['gflop_per_step']:.1f} GFLOP/step, "
         f"{train['tflops']:.2f} TFLOP/s (float32 bound {train['bound_ms']:.3f} ms); split "
         f"forward with loss and metric {train['forward_ms']:.3f} ms, backward "
         f"{train['backward_ms']:.3f} ms, optimizer {train['optimizer_ms']:.3f} ms; peak "
         f"memory {train['peak_mib']:.1f} MiB"
+    )
+    tt = train["turns_step_ms"]
+    print(
+        f"[{card}] train step timed in turns with the parity step (batch {BATCH} x {H}x{W}, "
+        f"float32): {train['auto_kind']} {tt[train['auto_kind']]:.3f} ms, parity "
+        f"{tt['parity']:.3f} ms"
     )
     print(
         f"[{card}] profiled train step: wall {train['profile_profiled_wall_ms_per_batch']:.3f} "
@@ -3501,7 +3771,8 @@ def main(argv=None) -> int:
         f"{dtr['forward_ms']:.3f} ms, backward {dtr['backward_ms']:.3f} ms, optimizer "
         f"{dtr['optimizer_ms']:.3f} ms; peak memory {dtr['peak_mib']:.1f} MiB; eval step "
         f"{dtr['eval_ms']:.3f} ms; BNRefresher over {2 * BATCH} B-scans "
-        f"{dtr['bn_refresh_ms']:.3f} ms; loop {dtr['loop_bscans_per_s']:.2f} B-scans/s"
+        f"{dtr['bn_refresh_ms']:.3f} ms; the {DL_TRAIN_STEPS}-step training loop under "
+        f"deterministic algorithms {dtr['loop_bscans_per_s']:.2f} B-scans/s"
     )
     print(
         f"[{card}] deeplab gradients vs the replaying float64 step: card "
@@ -3620,11 +3891,17 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
     w1, two = dp["world1"], dp["two_ranks"]
+    dp_kinds = (w1["auto_kind"], "parity")
+    for kind in dp_kinds:
+        print(
+            f"[{card}] dp path, the {kind} forward: world of one (NCCL) train step "
+            f"{w1[kind]['ddp_world1_step_ms']:.3f} ms with DDP, "
+            f"{w1[kind]['one_device_step_ms']:.3f} ms without; spmd step over two ranks on the "
+            f"card (gloo) {two[kind]['spmd_step_ms'][0]:.3f} ms on rank 0"
+        )
     print(
-        f"[{card}] dp path: world of one (NCCL) train step {w1['ddp_world1_step_ms']:.3f} ms "
-        f"with DDP, {w1['one_device_step_ms']:.3f} ms without; two ranks on the card (gloo): "
-        f"{two['ranks_wall_s']:.1f} s for both ranks' work, spawn included; the phase "
-        f"{dp['phase_s']:.1f} s"
+        f"[{card}] dp path: two ranks on the card (gloo) {two['ranks_wall_s']:.1f} s for both "
+        f"ranks' work, spawn included; the phase {dp['phase_s']:.1f} s"
     )
     bu, bd, bt, bs = bf16["unet"], bf16["deeplab"], bf16["train"], bf16["step_check"]
     for name, res in (("U-Net s2d (B2)", bu), ("DeepLabV3+ folded (B1)", bd)):
@@ -3643,13 +3920,16 @@ def main(argv=None) -> int:
         for kname, ms in res["top_kernels_ms_per_batch"]:
             print(f"  {ms:9.3f} ms/batch  {kname[:100]}")
     print(
-        f"[{card}] bf16 train step (U-Net, batch {BATCH} x {H}x{W}, start_neurons 32, Adam, "
+        f"[{card}] bf16 train step, the {bt['auto_kind']} forward (train_forward_impl='auto'; "
+        f"U-Net, batch {BATCH} x {H}x{W}, start_neurons 32, Adam, "
         f"focal+Dice): {bt['step_ms']:.3f} ms/step = {bt['bscans_per_s']:.2f} B-scans/s; "
         f"{bt['gflop_per_step']:.1f} GFLOP/step, {bt['tflops']:.2f} TFLOP/s = "
         f"{bt['share_of_bf16_peak']:.4f} of dense bf16 (bound {bt['bound_ms']:.3f} ms); split "
         f"forward with loss and metric {bt['forward_ms']:.3f} ms, backward "
         f"{bt['backward_ms']:.3f} ms, optimizer {bt['optimizer_ms']:.3f} ms; peak memory "
-        f"{bt['peak_mib']:.1f} MiB; the bf16_path phase {bf16['phase_s']:.1f} s"
+        f"{bt['peak_mib']:.1f} MiB; timed in turns: {bt['auto_kind']} "
+        f"{bt['turns_step_ms'][bt['auto_kind']]:.3f} ms, parity "
+        f"{bt['turns_step_ms']['parity']:.3f} ms; the bf16_path phase {bf16['phase_s']:.1f} s"
     )
     st = s2d_train
     print(
@@ -3703,26 +3983,45 @@ def main(argv=None) -> int:
             "launches", "phase_s",
         )
     }}))
+    sc = train["step_check"]
+    print(json.dumps({"train_default": {
+        "auto_kind": train["auto_kind"],
+        "step_ms": train["step_ms"],
+        "turns_step_ms": train["turns_step_ms"],
+        "turns_step_ms_runs": train["turns_step_ms_runs"],
+        "gflop_per_step": train["gflop_per_step"],
+        "peak_mib": train["peak_mib"],
+        "losses_first_last": train["losses_first_last"],
+        "grad_gate": {k: sc[k] for k in (sc["auto_kind"], "parity")},
+        "bf16_auto_kind": bt["auto_kind"],
+        "bf16_step_ms": bt["step_ms"],
+        "bf16_turns_step_ms": bt["turns_step_ms"],
+        "dp_auto_kind": w1["auto_kind"],
+        "deeplab_grad_worst_of_allowance": dck["grad_card_worst_of_allowance"],
+    }}))
     print(json.dumps({"dp": {
-        "world1_ddp_step_ms": w1["ddp_world1_step_ms"],
-        "world1_one_device_step_ms": w1["one_device_step_ms"],
-        "world1_param_max_abs_err": w1["param"],
-        "world1_stat_max_abs_err": w1["stat"],
-        "world1_loss_max_abs_err": w1["loss_max_abs_err"],
-        "two_rank_loss_rel_err": two["step_loss_rel_err"],
-        "two_rank_metric_rel_err": two["step_metric_rel_err"],
-        "two_rank_grad_worst_of_allowance": two["step_grad_worst_of_allowance"],
-        "two_rank_stat_max_abs_err": two["step_stat_max_abs_err"],
-        "two_rank_refresh_max_abs_err": two["refresh_max_abs_err"],
+        "auto_kind": w1["auto_kind"],
+        **{kind: {
+            "world1_ddp_step_ms": w1[kind]["ddp_world1_step_ms"],
+            "world1_one_device_step_ms": w1[kind]["one_device_step_ms"],
+            "world1_param_max_abs_err": w1[kind]["param"],
+            "world1_stat_max_abs_err": w1[kind]["stat"],
+            "world1_loss_max_abs_err": w1[kind]["loss_max_abs_err"],
+            "two_rank_loss_rel_err": two[kind]["step_loss_rel_err"],
+            "two_rank_metric_rel_err": two[kind]["step_metric_rel_err"],
+            "two_rank_grad_worst_of_allowance": two[kind]["step_grad_worst_of_allowance"],
+            "two_rank_stat_max_abs_err": two[kind]["step_stat_max_abs_err"],
+            "two_rank_refresh_max_abs_err": two[kind]["refresh_max_abs_err"],
+            "spmd64": two[kind]["spmd64"],
+            "spmd32_loss_rel": two[kind]["spmd32_loss_rel"],
+            "spmd32_metric_rel": two[kind]["spmd32_metric_rel"],
+            "spmd32_stat_rel": two[kind]["spmd32_stat_rel"],
+            "spmd_step_ms_per_rank": two[kind]["spmd_step_ms"],
+        } for kind in dp_kinds},
         "two_rank_serving_bit_equal": True,
         "b1_launches_per_rank": two["b1_launches_per_rank"],
         "b2_launches_per_rank": two["b2_launches_per_rank"],
         "two_rank_wall_s": two["ranks_wall_s"],
-        "spmd64": two["spmd64"],
-        "spmd32_loss_rel": two["spmd32_loss_rel"],
-        "spmd32_metric_rel": two["spmd32_metric_rel"],
-        "spmd32_stat_rel": two["spmd32_stat_rel"],
-        "spmd_step_ms_per_rank": two["spmd_step_ms"],
         "phase_s": dp["phase_s"],
     }}))
     print(json.dumps({"kernels": kernels}))

@@ -16,7 +16,10 @@ A block is Conv (no bias unless asked, He-normal) -> BatchNorm (eps 1e-3)
 -> ReLU, the U-Net's :class:`.unet.ConvBlock`. Every resize upsamples, so
 ``F.interpolate(mode="bilinear", align_corners=False)`` is
 ``jax.image.resize(method="bilinear")``; the two agree to float32
-rounding, not bit for bit.
+rounding, not bit for bit. On the card PyTorch's bilinear backward adds
+with atomics, so under ``torch.use_deterministic_algorithms`` a resize
+that needs its gradient takes :class:`DeterministicResize`, whose
+backward contracts the gradient with the resize's weight matrices.
 
 ``dtype="bfloat16"`` runs the backbone, DSPP, decoder and both resizes in
 bfloat16 (the parameters stay float32, BatchNorm normalises in float32,
@@ -65,15 +68,54 @@ def _block(cin: int, cout: int, kernel: int, use_bn: bool, dilation=1, bias=Fals
     return ConvBlock(cin, cout, (kernel, kernel), use_bn, dilation=dilation, bias=bias)
 
 
+def _interpolate(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+
+
+def _resize_weights(n_in: int, n_out: int, like: torch.Tensor) -> torch.Tensor:
+    """``(n_out, n_in)``: the 1-D linear resize of ``F.interpolate``
+    (half-pixel centres) as a matrix, in ``like``'s dtype and device."""
+    dtype = torch.promote_types(like.dtype, torch.float32)
+    eye = torch.eye(n_in, dtype=dtype, device=like.device)[:, None, :]
+    weights = F.interpolate(eye, size=n_out, mode="linear", align_corners=False)
+    return weights[:, 0, :].t().to(like.dtype)
+
+
+class DeterministicResize(torch.autograd.Function):
+    """``F.interpolate``'s bilinear resize of NCHW ``x`` to ``(h, w)``,
+    whose backward is ``A_h^T @ g @ A_w`` with :func:`_resize_weights`'
+    matrices: sums in a fixed order where PyTorch's CUDA backward adds
+    with atomics. The forward is ``F.interpolate``'s, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        ctx.in_hw = (x.shape[2], x.shape[3])
+        return _interpolate(x, h, w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (ih, iw), (h, w) = ctx.in_hw, (g.shape[2], g.shape[3])
+        if ih != h:
+            g = _resize_weights(ih, h, g).t() @ g
+        if iw != w:
+            g = g @ _resize_weights(iw, w, g)
+        return g, None, None
+
+
+def _resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    if x.is_cuda and x.requires_grad and torch.are_deterministic_algorithms_enabled():
+        return DeterministicResize.apply(x, h, w)
+    return _interpolate(x, h, w)
+
+
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """NCHW bilinear resize with half-pixel centres (``jax.image.resize``'s
     "bilinear" when it upsamples). Below float32 it resizes the width,
     rounds, then the height, as JAX's einsum contracts a bfloat16 array
     one axis at a time."""
     if x.dtype.itemsize >= 4:
-        return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
-    x = F.interpolate(x, size=(x.shape[2], w), mode="bilinear", align_corners=False)
-    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+        return _resize(x, h, w)
+    return _resize(_resize(x, x.shape[2], w), h, w)
 
 
 class DSPP(nn.Module):

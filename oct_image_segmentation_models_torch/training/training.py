@@ -33,9 +33,11 @@ the one-device run, its batches through the same producer thread.
 
 ``train_step_impl="spmd"`` over several ranks is the one-device step on
 the global batch; every rank's step generator then starts from the run's
-seed. ``train_forward_impl="s2d"`` trains through the space-to-depth
-forward (:mod:`..ops.s2d_train`) and raises ``ValueError`` where JAX
-raises; "auto" and "parity" train the plain module.
+seed. The forward that trains is JAX's choice
+(:func:`resolve_train_forward`): under ``train_forward_impl`` "auto" and
+"s2d" the space-to-depth forward (:mod:`..ops.s2d_train`) wherever the
+model and the image dims qualify, else the plain module ("s2d" then
+raises ``ValueError`` where JAX raises); "parity" the plain module.
 """
 
 from __future__ import annotations
@@ -79,6 +81,40 @@ from .training_parameters import TrainingParams
 TRAIN_STATE_FILENAME = "train_state_latest.npz"
 TRAIN_STATE_FORMAT = "octseg-torch-train-state-v1"
 _STAT_CACHE_BYTES_DEFAULT = 1 << 29
+
+
+def resolve_train_forward(
+    module: torch.nn.Module,
+    model_config: Optional[dict],
+    image_height: int,
+    image_width: int,
+    impl: str = "auto",
+) -> tuple:
+    """The forward that trains, evaluates and refreshes BatchNorm for
+    ``module``, as JAX's ``train_model`` picks it: ``(forward, kind)``.
+
+    Unless ``impl`` is "parity", the space-to-depth training forward
+    (:func:`..ops.s2d_train.maybe_build_s2d_train`, the same parameters
+    and statistics as ``module``) when the model and the image dims
+    qualify, ``kind`` "s2d". Otherwise ``module`` itself, ``kind``
+    "parity"; under "s2d" a model or geometry that does not qualify
+    raises ``ValueError``."""
+    if impl not in ("auto", "s2d", "parity"):
+        raise ValueError(f"unknown train_forward_impl: {impl}")
+    if impl != "parity":
+        from ..ops.s2d_train import maybe_build_s2d_train
+
+        forward = maybe_build_s2d_train(module, model_config, image_height, image_width)
+        if forward is not None:
+            log.info("Using s2d-transformed training forward")
+            return forward, "s2d"
+        if impl == "s2d":
+            raise ValueError(
+                "train_forward_impl='s2d' requires an s2d-eligible U-Net "
+                "config and image dims divisible by the transformed-level "
+                "factor"
+            )
+    return module, "parity"
 
 
 def _split_meta_arrays(obj, out: dict):
@@ -744,24 +780,11 @@ def train_model(
         start_epoch = int(resume_meta["epoch"])
         log.info(f"Resumed at epoch {start_epoch} (step {state.step})")
 
-    # The forward inside the train and eval steps and the refresh: the
-    # space-to-depth training forward (ops/s2d_train.py, the same
-    # parameters and statistics) when asked for, else the plain module.
-    # "auto" trains the plain module, as JAX's "parity" does (ROADMAP C).
-    compute_module = module
-    if training_params.train_forward_impl == "s2d":
-        from ..ops.s2d_train import maybe_build_s2d_train
-
-        compute_module = maybe_build_s2d_train(
-            module, model_container.get_config(), image_height, image_width
-        )
-        if compute_module is None:
-            raise ValueError(
-                "train_forward_impl='s2d' requires an s2d-eligible U-Net "
-                "config and image dims divisible by the transformed-level "
-                "factor"
-            )
-        log.info("Using s2d-transformed training forward")
+    # The forward inside the train and eval steps and the refresh.
+    compute_module, _ = resolve_train_forward(
+        module, model_container.get_config(), image_height, image_width,
+        training_params.train_forward_impl,
+    )
 
     preprocess_fn = model_container.get_preprocess_input_fn()
     # Device augmentation: the generator keeps its mode logic (which sample

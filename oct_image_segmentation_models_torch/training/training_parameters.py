@@ -6,12 +6,15 @@ the CPU).
 
 ``opt_con`` is an optimizer name ("Adam", "sgd", ...) or a callable that
 returns a ``torch.optim.Optimizer`` factory (see
-``parallel.train_step.build_optimizer``). ``train_forward_impl`` "auto"
-and "parity" both train the plain module; "s2d" trains through the
-space-to-depth training forward (``ops.s2d_train``) and raises at
-training time for a model or geometry it does not fit, as JAX does. ``checkpoint_format="orbax"`` writes the port's directory
-checkpoints (``common.model_io.save_model_dir``) under the JAX package's
-``.orbax`` names.
+``parallel.train_step.build_optimizer``). ``train_forward_impl`` as in
+JAX: "auto" trains through the space-to-depth training forward
+(``ops.s2d_train``) wherever the model and the image dims qualify, else
+the plain module; "s2d" does the same but raises at training time for a
+model or geometry it does not fit; "parity" trains the plain module
+(``training.training.resolve_train_forward``).
+``checkpoint_format="orbax"`` writes the port's directory checkpoints
+(``common.model_io.save_model_dir``) under the JAX package's ``.orbax``
+names.
 """
 
 from __future__ import annotations

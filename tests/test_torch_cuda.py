@@ -7,6 +7,7 @@ machine with a card and no JAX they run as
 """
 
 import copy
+import warnings
 
 import numpy as np
 import pytest
@@ -779,3 +780,40 @@ def test_bf16_forward_on_the_card_matches_the_cpu(cuda, model):
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 5e-2
     assert float((got.argmax(-1) == want.argmax(-1)).float().mean()) >= 0.99
+
+
+def test_deeplab_resize_backward_is_reproducible_on_the_card(cuda):
+    """Under deterministic algorithms the DeepLab's bilinear resize on the
+    card goes through ``DeterministicResize``: no op warns that it has no
+    deterministic kernel, two backward passes are bit-equal, and the
+    gradient is the CPU float64 one within 1e-5 of its max (float32 sums
+    of a few terms)."""
+    from oct_image_segmentation_models_torch.models.deeplabv3plus import resize_bilinear
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 64, 32, 64))
+    g = rng.normal(size=(2, 64, 128, 256))
+
+    def grad(device, dtype):
+        xt = torch.tensor(x, dtype=dtype, device=device, requires_grad=True)
+        y = resize_bilinear(xt, 128, 256)
+        (gx,) = torch.autograd.grad(y, xt, torch.tensor(g, dtype=dtype, device=device))
+        return type(y.grad_fn).__name__, gx.cpu()
+
+    prev = (
+        torch.are_deterministic_algorithms_enabled(),
+        torch.is_deterministic_algorithms_warn_only_enabled(),
+    )
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runs = [grad(cuda, torch.float32) for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    assert [name for name, _ in runs] == ["DeterministicResizeBackward"] * 2
+    assert not [w for w in caught if "does not have a deterministic" in str(w.message)]
+    assert torch.equal(runs[0][1], runs[1][1])
+    _, want = grad("cpu", torch.float64)
+    err = float((runs[0][1].double() - want).abs().max()) / float(want.abs().max())
+    assert err <= 1e-5, err

@@ -33,6 +33,13 @@ classes, start_neurons=2, pool_layers=2).
   (JAX's global dropout mask, each rank its rows) against JAX's spmd step
   on the 2-device mesh, loss rel 1e-5 (``tests/test_torch_spmd_step.py``
   holds the rest of it).
+- One ``impl="shard_map"`` step over the s2d training forward
+  (``S2DTrainForward``, whose parameters are the parity module's, in
+  order) on the same two ranks, each with its JAX mask: the gradients
+  DDP averages within 1e-4 of each tensor's max (the pre-BN conv
+  biases, whose exact gradient is 0, of the largest gradient's) of the
+  mean of the one-device s2d steps on each rank's rows and mask, and twice them
+  within 5e-4 of JAX's shard_map step over its s2d forward (JAX sums).
 - A world of one against the one-device step: bit for bit.
 - Two nodes of two ranks, each rank on its own data: every rank's weights
   and statistics bit for bit equal after 4 steps.
@@ -55,11 +62,14 @@ import torch.distributed as dist
 from oct_image_segmentation_models_tpu.models import get_model_class as jax_model_class
 from oct_image_segmentation_models_tpu.ops import bn_refresh as jax_bn
 from oct_image_segmentation_models_tpu.ops import metrics as jm
+from oct_image_segmentation_models_tpu.ops import s2d_train as jst
 from oct_image_segmentation_models_tpu.parallel import train_step as jts
 from oct_image_segmentation_models_tpu.parallel.mesh import create_mesh as jax_mesh
 from oct_image_segmentation_models_torch.ops import losses as tl
 from oct_image_segmentation_models_torch.ops.bn_refresh import BNRefresher
+from oct_image_segmentation_models_torch.models import unet as port_unet
 from oct_image_segmentation_models_torch.ops import metrics as tm
+from oct_image_segmentation_models_torch.ops.s2d_train import S2DTrainForward
 from oct_image_segmentation_models_torch.parallel import mesh as mesh_lib
 from oct_image_segmentation_models_torch.parallel import train_step as tts
 
@@ -87,6 +97,11 @@ GLOBAL_BATCH = 4
 EVAL_RTOL = 1e-4
 ADAM_EPS = 1e-7  # the Keras default both packages build "adam" with
 RANK_TIMEOUT_S = 120
+# DDP over the s2d forward against the mean of the one-device s2d steps:
+# the same float32 gradients, from ranks of one thread and this process's
+# threads, averaged by gloo's all-reduce and here (measured at most 1.04e-5
+# of a tensor's max, in a BatchNorm scale whose gradient nearly cancels).
+S2D_REPLICA_RTOL = 1e-4
 # The bottleneck's NCHW shape at start_neurons=2, pool_layers=2: where the
 # dropout mask is drawn.
 BOTTLENECK = (CONFIG["start_neurons"] * 4, H // 4, W // 4)
@@ -202,6 +217,20 @@ try:
     out["unequal"] = "no error"
 except ValueError as exc:
     out["unequal"] = str(exc)
+
+# One shard_map step over the s2d training forward: DDP over
+# S2DTrainForward, whose parameters are the parity module's, in order.
+from oct_image_segmentation_models_torch.ops.s2d_train import S2DTrainForward
+
+s2d_module = module_from_inputs()
+s2d_forward = S2DTrainForward(s2d_module)
+assert [id(p) for p in s2d_forward.parameters()] == [id(p) for p in s2d_module.parameters()]
+s2d_state = ts.create_train_state(s2d_forward, ts.build_optimizer("sgd", {"learning_rate": 1.0}), mesh)
+s2d_step = ts.make_train_step(s2d_forward, loss_fn, metric_fn, mesh, impl="shard_map")
+masks.append(torch.from_numpy(data["masks"][0, rank]))
+s2d_step(s2d_state, torch.from_numpy(data["x"][0][rows]), torch.from_numpy(data["y"][0][rows]), None)
+assert not masks and all(p.grad is not None for p in s2d_module.parameters())
+grads.update({"s2dgrad/" + k: p.grad.numpy().copy() for k, p in s2d_module.named_parameters()})
 np.savez(
     f"{workdir}/rank{rank}.npz",
     **{"sd/" + k: v.numpy() for k, v in module.state_dict().items()},
@@ -269,6 +298,33 @@ def two_ranks(tmp_path_factory):
     before = _state_dict_of(variables["params"], variables["batch_stats"])
     after = _state_dict_of(after.params, after.batch_stats)
     want = {"grad_sum": {k: before[k] - after[k] for k in before if "running" not in k}}
+    # The same step over JAX's s2d training forward, and the port's
+    # per-replica definition over its own: the one-device step on each
+    # rank's rows with that rank's mask, then the mean.
+    after, _, _ = jts.make_train_step(
+        jst.S2DTrainForward(CONFIG), sgd, jloss, jmetric, mesh, impl="shard_map"
+    )(jts.create_train_state(params(), sgd, mesh), jnp.asarray(batches[0][0]),
+      jnp.asarray(batches[0][1]), keys[0])
+    after = _state_dict_of(after.params, after.batch_stats)
+    want["s2d_grad_sum"] = {k: before[k] - after[k] for k in before if "running" not in k}
+    tloss = _loss_pair("focal_dice_loss")[2]
+    replicas = []
+    saved_mask = port_unet.dropout_mask
+    try:
+        for r in range(2):
+            port_unet.dropout_mask = lambda x, generator, r=r: torch.from_numpy(masks[0, r])
+            module = _port_module(variables)
+            forward = S2DTrainForward(module)
+            step = tts.make_train_step(forward, tloss, tm.dice_coef_macro(True, C))
+            rows = slice(r * per_rank, (r + 1) * per_rank)
+            step(
+                tts.create_train_state(forward, tts.build_optimizer("sgd", {"learning_rate": 1.0})),
+                torch.from_numpy(batches[0][0][rows]), torch.from_numpy(batches[0][1][rows]), None,
+            )
+            replicas.append({k: p.grad for k, p in module.named_parameters()})
+    finally:
+        port_unet.dropout_mask = saved_mask
+    want["s2d_replica_mean"] = {k: (replicas[0][k] + replicas[1][k]) / 2 for k in replicas[0]}
     tx = jts.build_optimizer("adam", {"epsilon": 2 * ADAM_EPS})
     state = jts.create_train_state(params(), tx, mesh)
     step = jts.make_train_step(jmod, tx, jloss, jmetric, mesh, impl="shard_map")
@@ -321,6 +377,31 @@ def test_jax_shard_map_sums_what_the_port_averages(two_ranks):
         if _pre_bn_bias(k):  # exact gradient 0: float noise on both sides
             continue
         _check_grad(got, g_sum, k)
+
+
+def test_ddp_over_s2d_forward_is_the_per_replica_step(two_ranks):
+    """DDP over ``S2DTrainForward`` averages the ranks' s2d gradients: the
+    mean of the one-device s2d steps on each rank's rows and mask."""
+    ranks, want = two_ranks
+    (_, npz0), (_, npz1) = ranks
+    largest = max(float(g.abs().max()) for g in want["s2d_replica_mean"].values())
+    for k, g in want["s2d_replica_mean"].items():
+        got = npz0["s2dgrad/" + k]
+        assert np.array_equal(got, npz1["s2dgrad/" + k]), f"ranks differ in {k}"
+        # a pre-BN conv bias's exact gradient is 0: noise, held against
+        # the largest gradient
+        scale = largest if _pre_bn_bias(k) else float(g.abs().max())
+        err = float((torch.from_numpy(got) - g).abs().max())
+        assert err <= S2D_REPLICA_RTOL * scale, (k, err)
+
+
+def test_jax_shard_map_over_s2d_sums_what_the_port_averages(two_ranks):
+    ranks, want = two_ranks
+    npz = ranks[0][1]
+    for k, g_sum in want["s2d_grad_sum"].items():
+        if _pre_bn_bias(k):  # exact gradient 0: float noise on both sides
+            continue
+        _check_grad(2 * torch.from_numpy(npz["s2dgrad/" + k]), g_sum, k)
 
 
 def test_cross_rank_refresher_matches_jax_on_all_batches(two_ranks):
