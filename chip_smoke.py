@@ -180,19 +180,35 @@ Phases, each of which raises on failure:
 Each path's run also prints which variant of each kernel it took (the
 min-path choice store, the encoder pair's tile).
 
-The workflows' artifact writing (``predict``, ``evaluate_model``,
-``train_model``) needs h5py and matplotlib, which the card's machine
-lacks, so this script drives their device parts (``run_pipeline``, the
-graph-search API, the train and eval steps and the BN refresher); the CPU
-tests (``tests/test_torch_predict_evaluate.py``,
-``tests/test_torch_training.py``) hold the artifacts. The export path reads no
-HDF5: directory checkpoints and the ``torch.export`` artifact need none.
+The workflow path (``workflow_path``), run after the data-parallel path,
+drives the file-backed entry points as a user calls them, every HDF5 file
+through the port's own layer (``common/h5.py``; the card's machine has
+neither h5py nor matplotlib, and the phase fails if h5py was imported): a
+reference-schema dataset (48 train, 16 validation and 16 test layered
+B-scans at 512x1024, about 84 MB) written and read back bit for bit, the
+read rate printed; ``train_model`` with its defaults (the s2d forward that
+``"auto"`` resolves to, which the phase checks, HDF5 checkpoints, precise
+BN) for 2 epochs at batch 8, its seconds per epoch beside the train
+path's step; every HDF5 file of its tree read back (``stats_epoch02.hdf5``
+with 2 finite epochs, ``training_params.hdf5`` with the appended
+``bn_precise_stats_applied``); ``model_final.hdf5`` through
+``load_model_and_config``, bit-equal to the module ``train_model`` saved,
+served through ``VolumeSegmenter`` (B2, fast ties) and ``predict``
+(``png_images=False``, graph search, B1) in both tie modes, every file
+read back equal to ``run_pipeline`` in memory and every path's rows equal
+to the plain min-path on maps rebuilt from its labels; ``evaluate_model``
+(graph search, B1) with finite Dice in [0, 1] and the per-image rows of
+``predict``. Checkpoint write and read ms, ``predict`` and
+``evaluate_model`` wall seconds, their host writes on the default worker
+pool. The export path reads no HDF5: directory
+checkpoints and the ``torch.export`` artifact need none.
 
 It prints one ``{"bf16": {...}}`` line with the bfloat16 path's results,
 one ``{"s2d_train": {...}}`` line with the s2d training path's, one
 ``{"train_default": {...}}`` line with the default (``"auto"``) train
 steps' forward, times and gradient gates,
 one ``{"dp": {...}}`` line with the data-parallel path's results, one
+``{"workflow": {...}}`` line with the workflow path's, one
 ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device it
 exits with code 2 and prints no result. It imports nothing of JAX.
@@ -3367,6 +3383,304 @@ def phase_dp_path(rng, model, volume: np.ndarray, seed: int) -> dict:
     return out
 
 
+# The workflow path: the file-backed entry points as a user calls them.
+WF_SPLITS = (("train", 48), ("val", 16), ("test", 16))  # B-scans per split
+WF_EPOCHS = 2
+WF_LR = 1e-3
+
+
+@contextlib.contextmanager
+def recording(owner, name: str, record: list):
+    """Wrap ``owner.name`` so that each call's arguments and result are
+    appended to ``record``; restored on exit."""
+    original = getattr(owner, name)
+
+    def wrapped(*args, **kwargs):
+        out = original(*args, **kwargs)
+        record.append((args, kwargs, out))
+        return out
+
+    setattr(owner, name, wrapped)
+    try:
+        yield record
+    finally:
+        setattr(owner, name, original)
+
+
+def write_workflow_dataset(path: Path, seed: int) -> tuple:
+    """A reference-schema dataset (the keys of ``tests/synth.py::
+    make_dataset``: ``{split}_images``, ``{split}_labels`` as ``(n, H, W,
+    1)`` uint8, ``test_images_source``) written with the port's HDF5
+    layer, then read back through it bit for bit -> (arrays, write s,
+    read s, bytes)."""
+    from oct_image_segmentation_models_torch.common import h5
+
+    rng = np.random.default_rng([seed, 12])
+    arrays = {}
+    for split, n in WF_SPLITS:
+        arrays[f"{split}_images"], arrays[f"{split}_labels"] = layered_dataset(
+            rng, n, H, W, NUM_CLASSES
+        )
+    n_test = dict(WF_SPLITS)["test"]
+    arrays["test_images_source"] = np.array(
+        [f"bscan_{i:03d}.png".encode("ascii") for i in range(n_test)]
+    )
+    attrs = {"image_height": H, "image_width": W, "num_channels": 1,
+             "type": np.array("fullsize", dtype="S100")}
+    t0 = time.perf_counter()
+    with h5.File(path, "w") as f:
+        for key, value in arrays.items():
+            f.create_dataset(key, data=value)
+        for key, value in attrs.items():
+            f.attrs[key] = value
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with h5.File(path, "r") as f:
+        back = {key: f[key][()] for key in f}
+        back_attrs = {key: f.attrs[key] for key in f.attrs}
+    read_s = time.perf_counter() - t0
+    for key, value in arrays.items():
+        if back[key].dtype != value.dtype or not np.array_equal(back[key], value):
+            raise AssertionError(f"dataset {key} read back differs")
+    if sorted(back) != sorted(arrays) or back_attrs != attrs:
+        raise AssertionError(f"dataset keys {sorted(back)} / attributes {back_attrs}")
+    nbytes = sum(v.nbytes for v in arrays.values())
+    return arrays, write_s, read_s, nbytes
+
+
+def read_hdf5_tree(path: Path) -> dict:
+    """Every dataset and attribute of an HDF5 file, read through the
+    port's layer: ``{name: value}``, attributes as ``name@attr``."""
+    from oct_image_segmentation_models_torch.common import h5
+
+    out = {}
+    with h5.File(path, "r") as f:
+        out.update({f"@{k}": v for k, v in f.attrs.items()})
+
+        def visit(name, obj):
+            out.update({f"{name}@{k}": v for k, v in obj.attrs.items()})
+            if isinstance(obj, h5.Dataset):
+                out[name] = obj[()]
+
+        f.visititems(visit)
+    return out
+
+
+def phase_workflow_path(seed: int, train_step_ms: float) -> dict:
+    """``train_model``, ``predict`` and ``evaluate_model`` through their
+    normal entry points and files, on the bench's U-Net at full width,
+    every HDF5 file through the port's layer (no h5py)."""
+    import importlib.util
+    import tempfile
+
+    from oct_image_segmentation_models_torch.common import EVALUATION_METRICS, model_io
+    from oct_image_segmentation_models_torch.common.dataset import Dataset
+    from oct_image_segmentation_models_torch.common.utils import load_model_and_config
+    from oct_image_segmentation_models_torch.evaluation import (
+        EvaluationParameters,
+        EvaluationSaveParams,
+        evaluate_model,
+    )
+    from oct_image_segmentation_models_torch.prediction import (
+        PredictionParams,
+        PredictionSaveParams,
+        predict,
+    )
+    from oct_image_segmentation_models_torch.prediction.prediction import run_pipeline
+    from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
+    from oct_image_segmentation_models_torch.training import (
+        TrainingParams,
+        train_model,
+        training,
+    )
+
+    t_phase = time.perf_counter()
+    present = {m: importlib.util.find_spec(m) is not None for m in ("h5py", "matplotlib")}
+    print(f"workflow path: installed {present}")
+    out = {"installed": present}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ds_path = tmp / "dataset.hdf5"
+        arrays, write_s, read_s, nbytes = write_workflow_dataset(ds_path, seed)
+        out.update(dataset_bytes=nbytes, dataset_write_s=write_s, dataset_read_s=read_s,
+                   dataset_read_gb_per_s=nbytes / read_s / 1e9,
+                   dataset_write_gb_per_s=nbytes / write_s / 1e9)
+        print(
+            f"workflow dataset ({', '.join(f'{s} {n}' for s, n in WF_SPLITS)} B-scans at "
+            f"{H}x{W}, {nbytes / 1e6:.1f} MB): written in {write_s:.3f} s, read back bit "
+            f"for bit in {read_s:.3f} s = {out['dataset_read_gb_per_s']:.2f} GB/s"
+        )
+        test_images = arrays["test_images"]
+        n_test = len(test_images)
+
+        reset_counts()
+        forwards, saves = [], []
+        t0 = time.perf_counter()
+        with recording(training, "resolve_train_forward", forwards), \
+                recording(model_io, "save_model", saves):
+            folder = train_model(TrainingParams(
+                model_architecture="unet", training_dataset_path=ds_path,
+                initial_model=None, results_location=tmp / "train", opt_con="adam",
+                opt_params={"learning_rate": WF_LR}, loss="focal_dice_loss",
+                metric="dice_coef_macro", epochs=WF_EPOCHS, batch_size=BATCH,
+                model_hyperparameters={"start_neurons": 32, "pool_layers": 4,
+                                       "conv_layers": 2},
+                seed=seed,
+            ))
+        train_s = time.perf_counter() - t0
+        kinds = sorted({res[1] for _, _, res in forwards})
+        if kinds != ["s2d"]:
+            raise AssertionError(f"train_model trained through {kinds}, not the s2d forward")
+        final_path = folder / "model_final.hdf5"
+        final = [args[3] for args, _, _ in saves if Path(args[0]) == final_path]
+        if len(final) != 1:
+            raise AssertionError(f"model_final.hdf5 written {len(final)} times")
+        final_state = {k: v.detach().cpu().clone() for k, v in final[0].items()}
+        files = sorted(p for p in folder.rglob("*") if p.is_file())
+        print(f"train_model ({train_s:.2f} s, forward {kinds[0]}) wrote {folder.name}/:")
+        for p in files:
+            print(f"  {p.relative_to(folder)}  {p.stat().st_size} bytes")
+        trees = {p.name: read_hdf5_tree(p) for p in files if p.suffix == ".hdf5"}
+        stats = trees.get(f"stats_epoch{WF_EPOCHS:02d}.hdf5")
+        if stats is None:
+            raise AssertionError(f"no stats_epoch{WF_EPOCHS:02d}.hdf5 in {sorted(trees)}")
+        for key in ("train_acc", "val_acc", "train_loss", "val_loss", "epoch_time"):
+            if stats[key].shape != (WF_EPOCHS,) or not np.isfinite(stats[key]).all():
+                raise AssertionError(f"stats {key} = {stats[key]}")
+        applied = trees["training_params.hdf5"].get("@bn_precise_stats_applied")
+        if not (isinstance(applied, np.bool_) and applied):
+            raise AssertionError(f"bn_precise_stats_applied = {applied!r}")
+        epoch_s = [float(s) for s in stats["epoch_time"]]
+        n_train = dict(WF_SPLITS)["train"]
+        out.update(
+            train_s=train_s, forward_kind=kinds[0], epoch_s=epoch_s,
+            train_bscans_per_s=[n_train / s for s in epoch_s],
+            train_loss=stats["train_loss"].tolist(), val_acc=stats["val_acc"].tolist(),
+            artifacts=[str(p.relative_to(folder)) for p in files],
+        )
+        print(
+            f"train_model epochs: {', '.join(f'{s:.3f}' for s in epoch_s)} s = "
+            f"{', '.join(f'{n_train / s:.2f}' for s in epoch_s)} B-scans/s (train step "
+            f"of train_path {train_step_ms:.3f} ms); train loss "
+            f"{stats['train_loss'].tolist()}, val {stats['val_acc'].tolist()}"
+        )
+
+        t0 = time.perf_counter()
+        loaded, config = load_model_and_config(final_path)
+        out["checkpoint_load_ms"] = (time.perf_counter() - t0) * 1e3
+        state = loaded.module.state_dict()
+        for key, value in final_state.items():
+            if not torch.equal(state[key].cpu(), value):
+                raise AssertionError(f"model_final.hdf5 {key} differs from the trained module")
+        t0 = time.perf_counter()
+        model_io.save_model(tmp / "again.hdf5", "unet", config, final_state)
+        out["checkpoint_write_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        model_io.read_checkpoint(tmp / "again.hdf5")
+        out["checkpoint_read_ms"] = (time.perf_counter() - t0) * 1e3
+        out["checkpoint_bytes"] = final_path.stat().st_size
+        print(
+            f"model_final.hdf5 ({out['checkpoint_bytes']} bytes) bit-equal to the trained "
+            f"module; checkpoint write {out['checkpoint_write_ms']:.1f} ms, read "
+            f"{out['checkpoint_read_ms']:.1f} ms, load_model_and_config "
+            f"{out['checkpoint_load_ms']:.1f} ms"
+        )
+
+        segmenter = VolumeSegmenter(loaded, config, batch_size=BATCH)
+        if segmenter.kind != "s2d":
+            raise AssertionError(f"VolumeSegmenter chose {segmenter.kind}, not s2d")
+        seg_labels, seg_rows = segmenter.segment_volume(test_images)
+        names = [Path(s.decode()) for s in arrays["test_images_source"]]
+        predicted, predict_s = {}, {}
+        for tie in ("fast", "exact"):
+            pdir = tmp / f"predict_{tie}"
+            pdir.mkdir()
+            t0 = time.perf_counter()
+            predicted[tie] = predict(PredictionParams(
+                model_path=final_path, mlflow_tracking_uri=None, mlflow_run_uuid=None,
+                dataset=Dataset(test_images, None, names,
+                                [pdir / f"image_{i}" for i in range(n_test)]),
+                config_output_dir=pdir,
+                save_params=PredictionSaveParams(png_images=False),
+                graph_search=True, batch_size=BATCH, minpath_tie_parity=tie,
+            ))
+            predict_s[tie] = time.perf_counter() - t0
+        eval_dir = tmp / "evaluate"
+        t0 = time.perf_counter()
+        evaluated = evaluate_model(EvaluationParameters(
+            model_path=final_path, mlflow_tracking_uri=None, mlflow_run_uuid=None,
+            test_dataset_path=ds_path, save_foldername=eval_dir,
+            save_params=EvaluationSaveParams(png_images=False),
+            graph_search=True, metrics=sorted(EVALUATION_METRICS), batch_size=BATCH,
+            minpath_tie_parity="fast",
+        ))
+        evaluate_s = time.perf_counter() - t0
+        counts, variants = read_counts(), read_variants()
+        print(
+            f"workflow path launches {counts}, variants {variants}; predict "
+            f"{predict_s['fast']:.2f} s (fast) / {predict_s['exact']:.2f} s (exact), "
+            f"evaluate_model {evaluate_s:.2f} s on {n_test} B-scans"
+        )
+        if counts["minpath_dp"] < 1 or counts["minpath_dp_s2d"] < 1:
+            raise AssertionError(f"the workflow path did not launch B1 and B2: {counts}")
+        if counts["s2d_enc_pair"]:
+            raise AssertionError(f"the workflow path launched B3: {counts}")
+
+        check_rows("fast", seg_labels, seg_rows)
+        for tie, outs in predicted.items():
+            reference = run_pipeline(loaded, config, list(test_images), BATCH, True,
+                                     minpath_tie_parity=tie)
+            labels, rows = [], []
+            for i, res in enumerate(outs):
+                info = read_hdf5_tree(res.image_output_dir / "prediction_info.hdf5")
+                gs = read_hdf5_tree(
+                    res.image_output_dir / "graph_search_prediction_info.hdf5"
+                )
+                for key, got, want in (
+                    ("predicted_labels", info["predicted_labels"], reference["predicted_labels"][i]),
+                    ("boundary_maps", info["boundary_maps"], reference["boundary_maps"][i]),
+                    ("raw_image", info["raw_image"], test_images[i]),
+                    ("gs_pred_segs", gs["gs_pred_segs"], reference["gs_pred_segs"][i]),
+                    ("gs_predicted_labels", gs["gs_predicted_labels"], reference["gs_masks"][i]),
+                ):
+                    if got.shape != np.shape(want) or not np.array_equal(got, want):
+                        raise AssertionError(f"predict {tie} image {i}: {key} differs from run_pipeline")
+                if info["@image_name"] != str(names[i]).encode():
+                    raise AssertionError(f"image_name {info['@image_name']!r}")
+                labels.append(info["predicted_labels"])
+                rows.append(gs["gs_pred_segs"])
+            check_rows(tie, np.stack(labels), np.stack(rows))
+        fast_rows = [r.gs_pred_segs for r in predicted["fast"]]
+        for i, res in enumerate(evaluated):
+            got = read_hdf5_tree(res.image_output_dir / "gs_evaluation_results.hdf5")
+            if not np.array_equal(got["gs_pred_segs"], fast_rows[i]):
+                raise AssertionError(f"evaluate_model image {i}: rows differ from predict's")
+        overall = read_hdf5_tree(eval_dir / "overall_evaluation_results.hdf5")
+        dice = overall["dice_coef_classes"]
+        if dice.shape[0] != n_test or not np.isfinite(dice).all() or (
+            (dice < 0) | (dice > 1)
+        ).any():
+            raise AssertionError(f"overall Dice {dice}")
+        out.update(
+            launches=counts, predict_s=predict_s, evaluate_s=evaluate_s,
+            mean_dice_classes=overall["mean_dice_coef_classes"].tolist(),
+            mean_gs_dice_classes=overall["mean_gs_dice_coef_classes"].tolist(),
+            gs_mean_abs_errors_px=overall["mean_abs_errors"].tolist(),
+            predict_files=sum(1 for _ in (tmp / "predict_fast").rglob("*")),
+            evaluate_files=sum(1 for _ in eval_dir.rglob("*")),
+        )
+        print(
+            f"predict (both tie modes) and evaluate_model files read back equal to "
+            f"run_pipeline in memory, rows equal the plain min-path on their labels; "
+            f"mean Dice per class {out['mean_dice_classes']}"
+        )
+    if sys.modules.get("h5py") is not None:
+        raise AssertionError("h5py was imported during the workflow path")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"workflow path phase {out['phase_s']:.1f} s")
+    return out
+
+
 def kernel_bound_ms(n: int, w: int, h: int, max_grad: int, exact: bool) -> tuple:
     """Least time for the min-path function on these shapes: bytes (maps
     read once, int32 rows written once) over HBM bandwidth, against int32
@@ -3635,6 +3949,7 @@ def main(argv=None) -> int:
     export = phase_export_path(model, args.seed, volume)
     bf16 = phase_bf16_path(rng, args.seed, volume, train.pop("_trained"), deeplab.pop("_trained"))
     dp = phase_dp_path(rng, model, volume, args.seed)
+    workflow = phase_workflow_path(args.seed, train["step_ms"])
 
     card = env["card"]
     for path in ("s2d", "folded"):
@@ -3799,7 +4114,8 @@ def main(argv=None) -> int:
             "minpath_dp",
             folded["launches"] + predict["launches"] + train["launches"]["minpath_dp"]
             + deeplab["launches"] + sum(dp["two_ranks"]["b1_launches_per_rank"])
-            + export_launches["minpath_dp"] + bf16["deeplab"]["launches"],
+            + export_launches["minpath_dp"] + bf16["deeplab"]["launches"]
+            + workflow["launches"]["minpath_dp"],
             parity["max_abs_err"],
             "b1",
             f"{tpu_minpath}:487",
@@ -3809,7 +4125,7 @@ def main(argv=None) -> int:
             s2d["launches"] + train["launches"]["minpath_dp_s2d"] + s2d_train["launches"]
             + sum(dp["two_ranks"]["b2_launches_per_rank"])
             + export_launches["minpath_dp_s2d"] + bf16["unet"]["launches"]
-            + bf16["export"]["launches"],
+            + bf16["export"]["launches"] + workflow["launches"]["minpath_dp_s2d"],
             parity_s2d["max_abs_err"],
             "b2",
             f"{tpu_minpath}:533",
@@ -3837,6 +4153,7 @@ def main(argv=None) -> int:
             line["launches_dp_path_per_rank"] = dp["two_ranks"]["b1_launches_per_rank"]
             line["launches_export_path"] = export_launches["minpath_dp"]
             line["launches_bf16_path"] = bf16["deeplab"]["launches"]
+            line["launches_workflow_path"] = workflow["launches"]["minpath_dp"]
         if key == "b2":
             line["launches_s2d_path"] = s2d["launches"]
             line["launches_train_path"] = train["launches"]["minpath_dp_s2d"]
@@ -3844,6 +4161,7 @@ def main(argv=None) -> int:
             line["launches_dp_path_per_rank"] = dp["two_ranks"]["b2_launches_per_rank"]
             line["launches_export_path"] = export_launches["minpath_dp_s2d"]
             line["launches_bf16_path"] = bf16["unet"]["launches"] + bf16["export"]["launches"]
+            line["launches_workflow_path"] = workflow["launches"]["minpath_dp_s2d"]
             line["transpose_then_b1_ms"] = times["b2_yardstick_fast_ms"]
             line["transpose_then_b1_ms_exact"] = times["b2_yardstick_exact_ms"]
         kernels.append(line)
@@ -3885,6 +4203,7 @@ def main(argv=None) -> int:
             "export_path": export,
             "bf16_path": bf16,
             "dp_path": dp,
+            "workflow_path": workflow,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start,
         }
@@ -3940,6 +4259,20 @@ def main(argv=None) -> int:
         f"{st['parity_peak_mib']:.1f} MiB; bf16 s2d step {st['bf16_s2d_step_ms']:.3f} ms "
         f"against the bf16 parity step's {st['bf16_parity_step_ms']:.3f} ms; the phase "
         f"{st['phase_s']:.1f} s"
+    )
+    wf = workflow
+    print(
+        f"[{card}] workflow path (train_model {WF_EPOCHS} epochs at batch {BATCH} of "
+        f"{dict(WF_SPLITS)['train']} B-scans at {H}x{W}, the {wf['forward_kind']} forward, "
+        f"checkpoint_format hdf5): "
+        + ", ".join(f"{s:.3f} s" for s in wf["epoch_s"]) + " per epoch = "
+        + ", ".join(f"{b:.2f}" for b in wf["train_bscans_per_s"])
+        + f" B-scans/s (train step {train['step_ms']:.3f} ms); dataset read "
+        f"{wf['dataset_read_gb_per_s']:.2f} GB/s; checkpoint write "
+        f"{wf['checkpoint_write_ms']:.1f} ms, read {wf['checkpoint_read_ms']:.1f} ms; predict "
+        f"{wf['predict_s']['fast']:.2f} s (fast) / {wf['predict_s']['exact']:.2f} s (exact), "
+        f"evaluate_model {wf['evaluate_s']:.2f} s on {dict(WF_SPLITS)['test']} B-scans; "
+        f"the phase {wf['phase_s']:.1f} s"
     )
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"bf16": {
@@ -4024,6 +4357,7 @@ def main(argv=None) -> int:
         "two_rank_wall_s": two["ranks_wall_s"],
         "phase_s": dp["phase_s"],
     }}))
+    print(json.dumps({"workflow": {k: v for k, v in workflow.items() if k != "artifacts"}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {

@@ -136,16 +136,16 @@ def cmd_train(args):
 
 
 def cmd_predict(args):
-    import h5py
     import numpy as np
 
+    from .common import h5
     from .common.dataset import Dataset
     from .common.dataset_loader import load_prediction_images
     from .prediction import PredictionParams, PredictionSaveParams, predict
 
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    with h5py.File(args.dataset, "r") as f:
+    with h5.File(args.dataset, "r") as f:
         images, names = load_prediction_images(f)
     out_dirs = [output_dir / f"image_{i}" for i in range(len(images))]
     params = PredictionParams(

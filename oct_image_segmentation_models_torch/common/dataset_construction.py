@@ -5,7 +5,7 @@ package's ``common/dataset_construction.py`` (the reference's
 Array convention (the reference's): full-size images are ``(..., width,
 height, channels)`` and patch labels ``(..., 1)``. ``create_area_mask``
 delegates to the port's :func:`..ops.boundary.create_area_mask` on the
-CPU. ``h5py`` is imported only by :func:`construct_dataset`.
+CPU. :func:`construct_dataset` writes through :mod:`.h5`.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops import boundary as boundary_ops
+from . import h5
 
 
 def construct_dataset(
@@ -46,8 +47,6 @@ def construct_dataset(
 ):
     """Write the reference's HDF5 dataset layout (patch or fullsize) —
     reference `dataset_construction.py:28-210`. Returns the filename."""
-    import h5py
-
     images = np.array(images, dtype="uint8")
     if labels is not None:
         labels = np.array(labels, dtype="uint8")
@@ -60,7 +59,7 @@ def construct_dataset(
             f"{alt_output}{write_filename}_{patch_width}x{patch_height}"
             f"patches_{trainvaltest}_{bg_mode}{bg_margin_str}.hdf5"
         )
-        save_file = h5py.File(filename, "w")
+        save_file = h5.File(filename, "w")
         num_bgs = {
             "three": 3,
             "one": 1,
@@ -89,7 +88,7 @@ def construct_dataset(
             f"{alt_output}{write_filename}_fullsize_{trainvaltest}"
             f"{multi_bg_str}.hdf5"
         )
-        save_file = h5py.File(filename, "w")
+        save_file = h5.File(filename, "w")
         save_file.attrs["image_width"] = images.shape[-3]
         save_file.attrs["image_height"] = images.shape[-2]
         if patch_labels is not None:

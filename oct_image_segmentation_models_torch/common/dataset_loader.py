@@ -1,6 +1,6 @@
 """HDF5 dataset loaders, counterpart of the JAX package's
-``common/dataset_loader.py``. They take an open ``h5py.File`` (the
-caller imports h5py) and return numpy arrays.
+``common/dataset_loader.py``. They take an open :class:`.h5.File` (or
+an ``h5py.File``) and return numpy arrays.
 
 Dense per-pixel labels are read from ``{train,val,test}_labels``. When
 only ``*_segs`` (boundary rows ``(N, num_boundaries, W)``) is present, the
@@ -26,7 +26,7 @@ def _labels_from_segs(segs: np.ndarray, image_height: int) -> np.ndarray:
 
 def _load_split(hdf5_data_file, split: str, sample_slice: slice = None):
     """Load one split; ``sample_slice`` restricts the read to a subset of
-    the samples at the h5py layer."""
+    the samples at the HDF5 layer, so only those rows are read."""
     sel = slice(None) if sample_slice is None else sample_slice
     images = hdf5_data_file[f"{split}_images"][sel]
     if images.ndim == 3:

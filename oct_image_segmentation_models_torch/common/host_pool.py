@@ -2,7 +2,7 @@
 counterpart of the JAX package's ``common/host_pool.py``.
 
 The workflows run the device pipeline batched up front; what is left per
-image (metrics, HDF5/CSV writes, matplotlib PNGs) is numpy, scipy, h5py
+image (metrics, HDF5/CSV writes, matplotlib PNGs) is numpy, scipy, HDF5
 and matplotlib work. This module fans it out over a spawn pool. Tasks
 carry numpy arrays, never tensors, and each worker hides the card from
 itself before it runs a task, so no worker initializes CUDA.

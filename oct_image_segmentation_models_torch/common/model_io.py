@@ -9,7 +9,7 @@
 - :func:`read_checkpoint` reads the JAX package's native HDF5 checkpoint
   (``format="octseg-tpu-v1"``: model name and config as attributes, one
   dataset per variable under its collection group, keyed by its tree
-  path) with h5py alone, imported inside the functions that read files.
+  path). Every HDF5 file goes through :mod:`.h5`, which needs no h5py.
 - :func:`load_model` rebuilds a :class:`LoadedModel` from such a file;
   :func:`load_model_and_config` does so with the workflows' surface: a
   native file, a directory checkpoint, a reference Keras ``.h5`` file, or
@@ -17,7 +17,7 @@
   or the run's logged config, wins over the embedded config).
 - :func:`save_model_dir` / :func:`load_model_dir` write and read the
   directory checkpoint, the port's counterpart of the JAX package's Orbax
-  backend; it needs no h5py. :func:`load_checkpoint` reads either format.
+  backend. :func:`load_checkpoint` reads either format.
 - :func:`load_keras_model` imports a reference Keras checkpoint (U-Net by
   layer order, DeepLabV3+ by layer name), :func:`load_keras_resnet50_weights`
   a Keras ResNet50 backbone, and :func:`save_keras_weights` writes the
@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..models import get_model_class
+from . import h5
 
 CHECKPOINT_FORMAT = b"octseg-tpu-v1"
 
@@ -54,9 +55,7 @@ def read_checkpoint(path) -> tuple:
     """Read a JAX-package checkpoint -> ``(model_name, model_config,
     variables_np)``, the variables as nested dicts of numpy arrays. The
     optimizer state, if any, is skipped."""
-    import h5py
-
-    with h5py.File(Path(path), "r") as f:
+    with h5.File(Path(path), "r") as f:
         fmt = f.attrs.get("format", b"")
         if fmt != CHECKPOINT_FORMAT:
             raise ValueError(
@@ -72,7 +71,7 @@ def read_checkpoint(path) -> tuple:
             flat = {}
 
             def visit(key, obj, _flat=flat):
-                if isinstance(obj, h5py.Dataset):
+                if isinstance(obj, h5.Dataset):
                     _flat[key] = np.asarray(obj[()])
 
             f[collection].visititems(visit)
@@ -195,13 +194,11 @@ def save_model(path, model_name: str, model_config: dict, state_dict: dict) -> N
     ``octseg-tpu-v1``): model name and JSON config as attributes, one
     dataset per Flax variable under its collection group, keyed by its
     tree path, as the JAX package's ``save_model`` writes it."""
-    import h5py
-
     def _s_attr(value: str) -> np.ndarray:
         data = value.encode("utf-8")
         return np.array(data, dtype=f"S{max(len(data), 1)}")
 
-    with h5py.File(Path(path), "w") as f:
+    with h5.File(Path(path), "w") as f:
         f.attrs["model_name"] = _s_attr(model_name)
         f.attrs["model_config"] = _s_attr(json.dumps(model_config))
         f.attrs["format"] = _s_attr(CHECKPOINT_FORMAT.decode())
@@ -243,9 +240,7 @@ def load_model(path, device=None) -> LoadedModel:
 
 
 def _is_native_checkpoint(path: Path) -> bool:
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with h5.File(path, "r") as f:
         return f.attrs.get("format", b"") == CHECKPOINT_FORMAT
 
 
@@ -411,11 +406,9 @@ def load_keras_resnet50_weights(params: dict, h5_path) -> tuple:
     names are the file's). Returns ``(params, batch_stats)``: a new params
     tree with the conv kernels and BN scales and offsets replaced where the
     names match, and the matching ``batch_stats`` tree."""
-    import h5py
-
     params = {name: dict(leaves) for name, leaves in params.items()}
     batch_stats = {}
-    with h5py.File(h5_path, "r") as f:
+    with h5.File(h5_path, "r") as f:
         weight_root = f["model_weights"] if "model_weights" in f else f
 
         def get_layer(name):
@@ -540,10 +533,8 @@ def load_keras_model(model_path, model_config: dict = None, device=None) -> tupl
     model_config)`` on ``device``, dispatching on the embedded model name
     (U-Net by layer order, DeepLabV3+ by layer name). ``model_config``
     overrides the sidecar lookup (MLflow run loads)."""
-    import h5py
-
     model_path = Path(model_path)
-    with h5py.File(model_path, "r") as f:
+    with h5.File(model_path, "r") as f:
         name = _keras_model_name(f, "unet")
     if name == "deeplabv3plus":
         return load_keras_deeplab_model(model_path, model_config=model_config, device=device)
@@ -562,11 +553,9 @@ def load_keras_unet_model(
     order, which is the order of the port's ``blocks.k``, so the weights map
     one to one by index; the head is the last conv. The hyper-parameters
     come from the sidecar ``model_config.json``."""
-    import h5py
-
     model_path = Path(model_path)
     model_config = _keras_sidecar_config(model_path, model_config)
-    with h5py.File(model_path, "r") as f:
+    with h5.File(model_path, "r") as f:
         root = f["model_weights"] if "model_weights" in f else f
         if model_name is None:
             model_name = _keras_model_name(f, "unet")
@@ -599,12 +588,10 @@ def load_keras_deeplab_model(model_path, model_config: dict = None, device=None)
     Keras default names in creation order (the DSPP blocks, the low-level
     projection, the two decoder blocks, the softmax head), which is the
     port's order, so they map by index."""
-    import h5py
-
     model_path = Path(model_path)
     model_config = _keras_sidecar_config(model_path, model_config)
     params, batch_stats = _template("deeplabv3plus", model_config)
-    with h5py.File(model_path, "r") as f:
+    with h5.File(model_path, "r") as f:
         root = f["model_weights"] if "model_weights" in f else f
         weights_of = _keras_weights_reader(root)
         for layer_name, target in params["resnet50"].items():
@@ -725,8 +712,6 @@ def save_keras_weights(
     it by order or by name, and :func:`load_keras_model` reads it back.
     ``write_sidecar`` also writes ``model_config.json`` beside it. Returns
     the written path."""
-    import h5py
-
     path = Path(path)
     variables = flax_from_state_dict(state_dict)
     params = variables["params"]
@@ -735,7 +720,7 @@ def save_keras_weights(
         raise ValueError(
             f"save_keras_weights supports 'unet' and 'deeplabv3plus', got {model_name!r}"
         )
-    with h5py.File(path, "w") as f:
+    with h5.File(path, "w") as f:
         if model_name == "deeplabv3plus":
             layer_names = _export_deeplab_layers(f, params, batch_stats)
         else:

@@ -3,7 +3,10 @@ counterpart of the JAX package's ``common/plotting.py``, with the same
 colour tables.
 
 matplotlib is imported inside the functions that draw, with the Agg
-backend, so that the port imports on a machine without it.
+backend, so that the port imports on a machine without it. There the
+plots the workflows always draw (the raw image and boundary overlays of
+predict and evaluate, the training curves) are left out, with one warning
+(:func:`available`); the plots asked for with ``png_images`` need it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,23 @@ region_colours = [
     "#fde8ff", "#4285f4", "#db4437", "#f4b400", "#0f9d58", "#ff6d00",
     "#46bdc6", "#ab30c4", "#0e0d5e", "#fde8ff", "#4285f4", "#db4437",
 ]
+
+
+_warned_missing = False
+
+
+def available() -> bool:
+    """Whether matplotlib imports; when it does not, one warning per
+    process says that the plots are left out."""
+    global _warned_missing
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        if not _warned_missing:
+            log.warning("matplotlib is not installed: the PNG plots are not written")
+            _warned_missing = True
+        return False
+    return True
 
 
 def _pyplot():
@@ -60,7 +80,9 @@ def save_cur_trainval_plot(
 ):
     """Two-pane train/val curve plot. NaN epochs (before a resume, or a
     diverged run) are skipped; a metric with no finite value reads
-    "n/a"."""
+    "n/a". Without matplotlib nothing is drawn (:func:`available`)."""
+    if not available():  # a missing curve plot must not stop training
+        return
     plt = _pyplot()
     f, (ax1, ax2) = plt.subplots(2, 1, sharex=False, sharey=False)
     f.set_size_inches(15, 15)

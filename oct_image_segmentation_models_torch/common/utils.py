@@ -53,3 +53,11 @@ def md5(file_path: Path) -> str:
     log.info(f"Calculating md5 of file: {file_path}")
     with open(file_path, "rb") as file_to_check:
         return hashlib.md5(file_to_check.read()).hexdigest()
+
+
+def load_model_and_config(model_path, **kwargs):
+    """The workflows' model loader, :func:`.model_io.load_model_and_config`,
+    where the JAX package's ``common/utils.py`` offers it too."""
+    from .model_io import load_model_and_config as _impl
+
+    return _impl(model_path, **kwargs)

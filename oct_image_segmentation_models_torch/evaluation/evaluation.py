@@ -9,8 +9,8 @@ boundary-map conversion and the min-path run batched on the device
 (:func:`..prediction.prediction.run_pipeline`); the Dice and
 surface-distance metrics run on the host (numpy, scipy).
 
-h5py and matplotlib are imported only by the functions that read or
-write files.
+HDF5 files are read and written through :mod:`..common.h5`;
+matplotlib is imported only by the functions that draw.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from ..common import (
     EVALUATION_METRIC_DICE_MICRO,
     EVALUATION_METRIC_HAUSDORFF_DISTANCE,
     dataset_loader as dl,
+    h5,
     host_pool,
     plotting,
     surface_distance as sd,
@@ -101,9 +102,7 @@ def _dice_micro(onehot_cf, pred_cf):
 
 
 def evaluate_model(eval_params: EvaluationParameters) -> List[EvaluationOutput]:
-    import h5py
-
-    with h5py.File(eval_params.test_dataset_path, "r") as test_dataset_file:
+    with h5.File(eval_params.test_dataset_path, "r") as test_dataset_file:
         eval_images, eval_labels, eval_image_names = dl.load_testing_data(
             test_dataset_file
         )
@@ -214,9 +213,9 @@ class _SaveContext:
 
 
 def _evaluate_and_save_image(task: dict) -> dict:
-    """Metrics and artifacts of one image (numpy, scipy, h5py and
-    matplotlib only). Returns the graph-search error statistics for the
-    EvaluationOutput."""
+    """Metrics and artifacts of one image (numpy, scipy, the HDF5 layer
+    and matplotlib only). Returns the graph-search error statistics for
+    the EvaluationOutput."""
     ctx = task["ctx"]
     ind = task["ind"]
     num_classes = ctx.num_classes
@@ -427,8 +426,6 @@ def _save_image_evaluation_results(
     predict_time: float,
     output_dir: Path,
 ):
-    import h5py
-
     save = eval_params.save_params
     num_classes = len(categorical_pred)
     (output_dir / "input_image_name.txt").write_text(str(image_name))
@@ -437,7 +434,7 @@ def _save_image_evaluation_results(
     # eval_labels is the dense label map.
     _save_csv(output_dir / "ground_truth_segmentation_map.csv", eval_labels)
 
-    with h5py.File(output_dir / EVALUATION_RESULTS_FILENAME, "w") as f:
+    with h5.File(output_dir / EVALUATION_RESULTS_FILENAME, "w") as f:
         _write_datasets(
             f,
             [
@@ -504,26 +501,27 @@ def _save_image_evaluation_results(
             output_dir / "predicted_segmentation_map.png",
             cmap=plotting.region_cmap(num_classes),
         )
-    plotting.save_image_plot(
-        eval_image,
-        output_dir / "raw_image.png",
-        cmap=None if eval_image.shape[2] == 3 else "gray",
-        vmin=0,
-        vmax=255,
-    )
-    plotting.save_image_plot(
-        eval_labels,
-        output_dir / "ground_truth_segmentation_map.png",
-        cmap=plotting.region_cmap(num_classes),
-    )
-    plotting.save_segmentation_plot(
-        eval_image,
-        "gray",
-        output_dir / "truth_plot.png",
-        truth_label_segs,
-        predictions=None,
-        column_range=range(eval_image.shape[1]),
-    )
+    if plotting.available():
+        plotting.save_image_plot(
+            eval_image,
+            output_dir / "raw_image.png",
+            cmap=None if eval_image.shape[2] == 3 else "gray",
+            vmin=0,
+            vmax=255,
+        )
+        plotting.save_image_plot(
+            eval_labels,
+            output_dir / "ground_truth_segmentation_map.png",
+            cmap=plotting.region_cmap(num_classes),
+        )
+        plotting.save_segmentation_plot(
+            eval_image,
+            "gray",
+            output_dir / "truth_plot.png",
+            truth_label_segs,
+            predictions=None,
+            column_range=range(eval_image.shape[1]),
+        )
 
 
 def _save_graph_based_evaluation_results(
@@ -544,13 +542,11 @@ def _save_graph_based_evaluation_results(
     graph_time: float,
     output_dir: Path,
 ):
-    import h5py
-
     num_classes = gs_pred_segs.shape[0] + 1
     _save_csv(output_dir / "gs_boundaries.csv", gs_pred_segs)
     _save_csv(output_dir / "gs_predicted_segmentation_map.csv", gs_eval_label)
 
-    with h5py.File(output_dir / GS_EVALUATION_RESULTS_FILENAME, "w") as f:
+    with h5.File(output_dir / GS_EVALUATION_RESULTS_FILENAME, "w") as f:
         _write_datasets(
             f,
             [
@@ -580,34 +576,33 @@ def _save_graph_based_evaluation_results(
         )
         _write_run_attrs(f, eval_params, image_name, graph_time=graph_time)
 
-    plotting.save_image_plot(
-        gs_eval_label,
-        output_dir / "gs_predicted_segmentation_map.png",
-        cmap=plotting.region_cmap(num_classes),
-    )
-    plotting.save_segmentation_plot(
-        eval_image,
-        "gray",
-        output_dir / "gs_pred_and_truth_overlay_plot.png",
-        truth_label_segs,
-        gs_pred_segs,
-        column_range=range(eval_image.shape[1]),
-    )
-    plotting.save_segmentation_plot(
-        eval_image,
-        "gray",
-        output_dir / "gs_predicted_boundaries_ovelay_plot.png",
-        gs_pred_segs,
-        predictions=None,
-        column_range=range(eval_image.shape[1]),
-    )
+    if plotting.available():
+        plotting.save_image_plot(
+            gs_eval_label,
+            output_dir / "gs_predicted_segmentation_map.png",
+            cmap=plotting.region_cmap(num_classes),
+        )
+        plotting.save_segmentation_plot(
+            eval_image,
+            "gray",
+            output_dir / "gs_pred_and_truth_overlay_plot.png",
+            truth_label_segs,
+            gs_pred_segs,
+            column_range=range(eval_image.shape[1]),
+        )
+        plotting.save_segmentation_plot(
+            eval_image,
+            "gray",
+            output_dir / "gs_predicted_boundaries_ovelay_plot.png",
+            gs_pred_segs,
+            predictions=None,
+            column_range=range(eval_image.shape[1]),
+        )
 
 
 def save_eval_config_file(eval_params: EvaluationParameters):
-    import h5py
-
     eval_params.save_foldername.mkdir(parents=True, exist_ok=True)
-    with h5py.File(eval_params.save_foldername / Path("eval_params.hdf5"), "w") as f:
+    with h5.File(eval_params.save_foldername / Path("eval_params.hdf5"), "w") as f:
         f.attrs["model_filename"] = np.array(
             str(eval_params.model_path), dtype="S1000"
         )
@@ -628,8 +623,6 @@ def _calc_overall_dataset_errors(
 ):
     """Dataset-level aggregation (the JAX package's output keys,
     statistics and CSV lines)."""
-    import h5py
-
     output_dir = eval_params.save_foldername
     graph_search_on = eval_params.graph_search
     metrics = eval_params.metrics
@@ -645,7 +638,7 @@ def _calc_overall_dataset_errors(
         for i in range(len(eval_image_names))
     ]
     for obj_name in dir_list:
-        with h5py.File(obj_name / EVALUATION_RESULTS_FILENAME, "r") as f:
+        with h5.File(obj_name / EVALUATION_RESULTS_FILENAME, "r") as f:
             if EVALUATION_METRIC_DICE_CLASSES in metrics:
                 concat(EVALUATION_METRIC_DICE_CLASSES, f, per_image)
             if EVALUATION_METRIC_DICE_MACRO in metrics:
@@ -661,7 +654,7 @@ def _calc_overall_dataset_errors(
 
     if graph_search_on:
         for obj_name in dir_list:
-            with h5py.File(obj_name / GS_EVALUATION_RESULTS_FILENAME, "r") as f:
+            with h5.File(obj_name / GS_EVALUATION_RESULTS_FILENAME, "r") as f:
                 concat("errors", f, gs_per_image)
                 if EVALUATION_METRIC_DICE_CLASSES in metrics:
                     concat(EVALUATION_METRIC_DICE_CLASSES, f, gs_per_image)
@@ -671,7 +664,7 @@ def _calc_overall_dataset_errors(
                     concat(EVALUATION_METRIC_DICE_MICRO, f, gs_per_image)
 
     # Context-managed: an exception mid-aggregation closes both files.
-    with h5py.File(
+    with h5.File(
         output_dir / OVERALL_EVALUATION_RESULTS_FILENAME_HDF5, "w"
     ) as save_file, open(
         output_dir / OVERALL_EVALUATION_RESULTS_FILENAME_CSV, "w"

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..common import h5
 
 
 class ShardedHDF5Reader:
@@ -52,14 +53,12 @@ class ShardedHDF5Reader:
         self.process_index, self.process_count = process_index, process_count
 
     def load(self):
-        import h5py
-
         from ..common.dataset_loader import _load_split
 
-        # The strided shard is selected inside the h5py read, so each node
+        # The strided shard is selected inside the HDF5 read, so each node
         # reads only its own 1/nodes of the split.
         shard = slice(self.process_index, None, self.process_count)
-        with h5py.File(self.path, "r") as f:
+        with h5.File(self.path, "r") as f:
             total = f[f"{self.split}_images"].shape[0]
             images, labels = _load_split(f, self.split, sample_slice=shard)
         if self.process_count > 1:

@@ -9,8 +9,9 @@ to the host. :func:`predict` writes per image the JAX package's files
 with the same HDF5 keys, attributes and dtypes. Per-image phase times are
 the batch's time divided by the batch that ran.
 
-h5py and matplotlib are imported only by the functions that write files,
-so :func:`run_pipeline` runs on a machine that has neither.
+HDF5 files are written through :mod:`..common.h5`, and matplotlib is
+imported only by the functions that draw, so the workflow runs on a
+machine that has neither h5py nor matplotlib.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..common import host_pool, plotting, utils
+from ..common import h5, host_pool, plotting, utils
 from ..models import get_model_class
 from ..ops.inference import StagedPipeline
 from .prediction_parameters import PredictionParams
@@ -303,7 +304,7 @@ class _PredSaveContext:
 
 
 def _save_prediction_image(task: dict) -> None:
-    """Artifacts of one image (numpy, h5py and matplotlib only)."""
+    """Artifacts of one image (numpy, the HDF5 layer and matplotlib only)."""
     ctx = task["ctx"]
     log.info(f"Saving prediction artifacts for image {task['ind']}: "
              f"{task['image_name']}")
@@ -331,9 +332,7 @@ def _save_prediction_image(task: dict) -> None:
 
 
 def save_predict_config_file(predict_params: PredictionParams):
-    import h5py
-
-    with h5py.File(
+    with h5.File(
         predict_params.config_output_dir / Path("prediction_params.hdf5"), "w"
     ) as config_file:
         config_file.attrs["model_filename"] = np.array(
@@ -358,9 +357,7 @@ def save_image_prediction_results(
     convert_time: float,
     output_dir: Path,
 ):
-    import h5py
-
-    with h5py.File(output_dir / Path("prediction_info.hdf5"), "w") as hdf5_file:
+    with h5.File(output_dir / Path("prediction_info.hdf5"), "w") as hdf5_file:
         if pred_params.save_params.categorical_pred:
             hdf5_file.create_dataset(
                 "categorical_pred", data=categorical_pred, dtype="uint8"
@@ -396,13 +393,14 @@ def save_image_prediction_results(
 
         hdf5_file.create_dataset("raw_image", data=predict_image, dtype="uint8")
 
-        plotting.save_image_plot(
-            predict_image,
-            output_dir / Path("raw_image.png"),
-            cmap=None if predict_image.shape[2] == 3 else "gray",
-            vmin=0,
-            vmax=255,
-        )
+        if plotting.available():
+            plotting.save_image_plot(
+                predict_image,
+                output_dir / Path("raw_image.png"),
+                cmap=None if predict_image.shape[2] == 3 else "gray",
+                vmin=0,
+                vmax=255,
+            )
 
         hdf5_file.attrs["model_filename"] = np.array(
             str(pred_params.model_path), dtype="S1000"
@@ -423,10 +421,8 @@ def save_graph_based_prediction_results(
     graph_time: float,
     output_dir: Path,
 ):
-    import h5py
-
     num_classes = gs_pred_segs.shape[0] + 1
-    with h5py.File(
+    with h5.File(
         output_dir / Path("graph_search_prediction_info.hdf5"), "w"
     ) as hdf5_file:
         np.savetxt(
@@ -447,32 +443,33 @@ def save_graph_based_prediction_results(
             "gs_predicted_labels", data=gs_prediction_label, dtype="uint8"
         )
 
-        plotting.save_image_plot(
-            gs_prediction_label,
-            output_dir / Path("gs_predicted_segmentation_map.png"),
-            cmap=plotting.region_cmap(num_classes),
-        )
-        # A defaulted column range is each image's full width (images may
-        # differ in width); an explicit one is clamped to this image's.
-        # An explicit range that starts beyond this image's width plots
-        # the full width, as the JAX package does.
-        width = gs_pred_segs.shape[1]
-        if not predict_params.col_error_range_explicit:
-            column_range = range(width)
-        else:
-            cr = predict_params.col_error_range
-            start, stop = cr[0], cr[-1] + 1
-            column_range = (
-                range(width) if start >= width else range(start, min(stop, width))
+        if plotting.available():
+            plotting.save_image_plot(
+                gs_prediction_label,
+                output_dir / Path("gs_predicted_segmentation_map.png"),
+                cmap=plotting.region_cmap(num_classes),
             )
-        plotting.save_segmentation_plot(
-            predict_image,
-            "gray",
-            output_dir / Path("gs_predicted_boundaries_ovelay_plot.png"),
-            gs_pred_segs,
-            predictions=None,
-            column_range=column_range,
-        )
+            # A defaulted column range is each image's full width (images may
+            # differ in width); an explicit one is clamped to this image's.
+            # An explicit range that starts beyond this image's width plots
+            # the full width, as the JAX package does.
+            width = gs_pred_segs.shape[1]
+            if not predict_params.col_error_range_explicit:
+                column_range = range(width)
+            else:
+                cr = predict_params.col_error_range
+                start, stop = cr[0], cr[-1] + 1
+                column_range = (
+                    range(width) if start >= width else range(start, min(stop, width))
+                )
+            plotting.save_segmentation_plot(
+                predict_image,
+                "gray",
+                output_dir / Path("gs_predicted_boundaries_ovelay_plot.png"),
+                gs_pred_segs,
+                predictions=None,
+                column_range=column_range,
+            )
 
         hdf5_file.attrs["model_filename"] = np.array(
             str(predict_params.model_path), dtype="S1000"

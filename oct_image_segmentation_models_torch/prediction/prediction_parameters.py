@@ -78,8 +78,7 @@ class PredictionParams:
                 f"{minpath_tie_parity!r}"
             )
         self.minpath_tie_parity = minpath_tie_parity
-        # The pipeline itself refuses what the port does not run
-        # ("bfloat16" is ROADMAP A13).
+        # The working type of the forward; both run on every serving path.
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype must be 'float32' or 'bfloat16', got "

@@ -59,7 +59,7 @@ import torch.distributed as dist
 from .._device import resolve_device
 from ..common import custom_losses, custom_metrics
 from ..common import data_generator as data_gen
-from ..common import dataset_loader, model_io, profiling, utils
+from ..common import dataset_loader, h5, model_io, profiling, utils
 from ..common.mlflow_parameters import MLflowParameters
 from ..common.tracking import NullTracker, get_tensorboard_writer, get_tracker
 from ..models import get_model_class
@@ -459,12 +459,10 @@ def save_training_params_file(
 ):
     """Self-describing run snapshot — reference `training/training.py:40-132`
     (same filenames and attribute keys)."""
-    import h5py
-
     with open(save_foldername / "model_config.json", "w") as config_file:
         json.dump(model_config, config_file)
 
-    with h5py.File(save_foldername / "training_params.hdf5", "w") as f:
+    with h5.File(save_foldername / "training_params.hdf5", "w") as f:
         f.attrs["timestamp"] = np.array(timestamp, dtype="S100")
         f.attrs["model_summary"] = np.array(model_summary, dtype="S1000")
         f.attrs["train_dataset_md5"] = np.array(training_dataset_md5, dtype="S1000")
@@ -593,8 +591,6 @@ def train_model(
     """Train a model on ``training_params.device`` (None means CUDA, and
     ``cuda:{local rank}`` in a process group); returns the run's save
     folder."""
-    import h5py
-
     mesh = create_mesh(device=training_params.device) if dist.is_initialized() else None
     device = mesh.device if mesh is not None else resolve_device(training_params.device)
     world, nodes = (mesh.world, mesh.nodes) if mesh is not None else (1, 1)
@@ -604,7 +600,7 @@ def train_model(
     tracker = get_tracker(mlflow_params) if is_main_process else NullTracker()
 
     training_dataset_path = training_params.training_dataset_path
-    with h5py.File(training_dataset_path, "r") as hdf5_file:
+    with h5.File(training_dataset_path, "r") as hdf5_file:
         train_images, train_labels = dataset_loader.load_training_data(hdf5_file)
         val_images, val_labels = dataset_loader.load_validation_data(hdf5_file)
 
@@ -1324,7 +1320,7 @@ def train_model(
     final_path = save_foldername / f"model_final{ckpt_suffix}"
     if is_main_process:
         try:
-            with h5py.File(save_foldername / "training_params.hdf5", "a") as f:
+            with h5.File(save_foldername / "training_params.hdf5", "a") as f:
                 f.attrs["bn_precise_stats_applied"] = bool(precise_stats_applied)
         except OSError:  # artifact missing or unwritable: never fail the run
             log.warning("could not record bn_precise_stats_applied in training_params.hdf5")

@@ -4,7 +4,8 @@
 Writes a rolling ``stats_epoch{NN}.hdf5`` after each epoch (deleting the
 previous epoch's file) with the same dataset keys
 (train_acc/val_acc/train_loss/val_loss/epoch_time), and the training
-curve plot. h5py and matplotlib are imported where the files are written.
+curve plot. The stats files go through :mod:`..common.h5`; matplotlib is
+imported where the plot is drawn.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import os
 import time
 from pathlib import Path
 
-from ..common import plotting
+from ..common import h5, plotting
 
 
 class SaveEpochInfo:
@@ -57,9 +58,7 @@ class SaveEpochInfo:
         self.val_accs.append(logs.get("val_" + self.acc_name))
         self.epoch_times.append(time.time() - self.start_epoch_time)
 
-        import h5py
-
-        with h5py.File(
+        with h5.File(
             self.save_folder / f"stats_epoch{epoch + 1:02d}.hdf5", "w"
         ) as f:
             f["train_acc"] = self.train_accs

@@ -105,6 +105,20 @@ def test_no_jax_package_import(path):
                 assert id(node) not in top_level, f"{path}: {name} at module level"
 
 
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_h5py_import(path):
+    """HDF5 files go through common/h5.py: the card's machine has no
+    h5py, and the path the CPU tests run must be the one that runs there."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        assert not any(name.split(".")[0] == "h5py" for name in names), (path, names)
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("this box has a CUDA device; device=None resolves to it")
