@@ -1,0 +1,9 @@
+"""device_idle.serve: the share of the traced window of a serving cell in
+which no kernel, copy or memset runs on the card."""
+
+
+def read(ctx):
+    trace = ctx.get("trace")
+    if trace is None or "useful_bscans" not in ctx:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)
