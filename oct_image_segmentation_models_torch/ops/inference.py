@@ -31,6 +31,7 @@ import torch
 
 from .._device import compute_dtype as as_dtype
 from .._device import module_dtype, precision, resolve_device
+from ..common import profiling
 from ..models import deeplabv3plus, unet
 from ..parallel.mesh import all_gather_host
 from . import boundary as boundary_ops
@@ -197,44 +198,51 @@ class FusedPipeline(torch.nn.Module):
         self._return_maps = return_maps
 
     def _s2d_tail(self, lab_s2d):
-        labels = d2s(lab_s2d)[..., 0]
-        # One ridge pass in the s2d domain; the image orientation is a
-        # permutation of its output.
-        maps_s2d = boundary_ops.boundary_maps_from_s2d_labels(
-            lab_s2d, self._num_classes, bg_ilm=self._bg_ilm, bg_csi=self._bg_csi,
-            transposed="s2d",
-        )
-        maps = boundary_ops.s2d_maps_to_image(maps_s2d) if self._return_maps else None
+        with profiling.span("serve.maps"):
+            labels = d2s(lab_s2d)[..., 0]
+            # One ridge pass in the s2d domain; the image orientation is a
+            # permutation of its output.
+            maps_s2d = boundary_ops.boundary_maps_from_s2d_labels(
+                lab_s2d, self._num_classes, bg_ilm=self._bg_ilm, bg_csi=self._bg_csi,
+                transposed="s2d",
+            )
+            maps = boundary_ops.s2d_maps_to_image(maps_s2d) if self._return_maps else None
         if not self._graph_search:
             return labels, maps, None
-        rows = minpath_ops.delineate_s2d(
-            maps_s2d,
-            max_grad=self._max_grad,
-            tie_parity=self._tie_parity,
-            backend=self._backend,
-        )
-        return labels, maps, rows.to(torch.uint16)
+        with profiling.span("serve.minpath"):
+            rows = minpath_ops.delineate_s2d(
+                maps_s2d,
+                max_grad=self._max_grad,
+                tie_parity=self._tie_parity,
+                backend=self._backend,
+            )
+            return labels, maps, rows.to(torch.uint16)
 
     def forward(self, images: torch.Tensor):
-        x = self._preprocess(images.to(torch.float32))
+        # The spans are off while torch.export or a compiler traces this
+        # module (profiling.tracing), so an exported program holds no
+        # profiler op.
+        with profiling.span("serve.forward"):
+            out = self.forward_fn(self._preprocess(images.to(torch.float32)))
         if self._s2d_labels:
-            return self._s2d_tail(self.forward_fn(x))
-        probs = self.forward_fn(x)
-        argmax_pred, categorical = boundary_ops.perform_argmax(probs, bin=True)
-        maps = boundary_ops.boundary_prob_maps(
-            categorical, bg_ilm=self._bg_ilm, bg_csi=self._bg_csi
-        )
-        labels = argmax_pred.to(torch.uint8)
+            return self._s2d_tail(out)
+        with profiling.span("serve.maps"):
+            argmax_pred, categorical = boundary_ops.perform_argmax(out, bin=True)
+            maps = boundary_ops.boundary_prob_maps(
+                categorical, bg_ilm=self._bg_ilm, bg_csi=self._bg_csi
+            )
+            labels = argmax_pred.to(torch.uint8)
         maps_out = maps if self._return_maps else None
         if not self._graph_search:
             return labels, maps_out, None
-        rows = minpath_ops.delineate_image_maps(
-            maps,
-            max_grad=self._max_grad,
-            tie_parity=self._tie_parity,
-            backend=self._backend,
-        )
-        return labels, maps_out, rows.to(torch.uint16)
+        with profiling.span("serve.minpath"):
+            rows = minpath_ops.delineate_image_maps(
+                maps,
+                max_grad=self._max_grad,
+                tie_parity=self._tie_parity,
+                backend=self._backend,
+            )
+            return labels, maps_out, rows.to(torch.uint16)
 
 
 def make_fused_pipeline(
@@ -294,9 +302,11 @@ def make_fused_pipeline(
     forward_precision = module_dtype(forward)
 
     def pipeline(images):
-        images = torch.as_tensor(images).to(device, non_blocking=True)
-        with torch.inference_mode(), precision(forward_precision):
-            return chain(images)
+        # serve.launch: the host's enqueue of the whole chain on one batch.
+        with profiling.span("serve.launch", bscans=len(images)):
+            images = torch.as_tensor(images).to(device, non_blocking=True)
+            with torch.inference_mode(), precision(forward_precision):
+                return chain(images)
 
     if mesh is None:
         return pipeline

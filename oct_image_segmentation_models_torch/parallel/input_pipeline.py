@@ -12,6 +12,10 @@ copied to the device ahead of the consumer.
 - :func:`prefetch_to_mesh` does the same for a rank of a mesh, with this
   rank's rows of each node batch, on a producer thread, so that host batch
   assembly overlaps the device's work.
+
+Under a profiler (:mod:`..common.profiling`) each batch's staging is a
+``serve.stage`` span (``bytes``), and each wait of
+:func:`prefetch_to_mesh`'s consumer for the producer an ``input.wait``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..common import h5
+from ..common import h5, profiling
 
 
 class ShardedHDF5Reader:
@@ -87,15 +91,17 @@ class _Uploader:
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def start(self, batch):
-        host = _tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a)), batch)
-        if self.stream is None:
-            return _tree_map(lambda t: t.to(self.device), host), None
-        host = _tree_map(lambda t: t.pin_memory(), host)
-        with torch.cuda.stream(self.stream):
-            dev = _tree_map(lambda t: t.to(self.device, non_blocking=True), host)
-            event = torch.cuda.Event()
-            event.record(self.stream)
-        return dev, event
+        nbytes = sum(a.nbytes for a in batch) if isinstance(batch, (tuple, list)) else batch.nbytes
+        with profiling.span("serve.stage", bytes=nbytes):
+            host = _tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a)), batch)
+            if self.stream is None:
+                return _tree_map(lambda t: t.to(self.device), host), None
+            host = _tree_map(lambda t: t.pin_memory(), host)
+            with torch.cuda.stream(self.stream):
+                dev = _tree_map(lambda t: t.to(self.device, non_blocking=True), host)
+                event = torch.cuda.Event()
+                event.record(self.stream)
+            return dev, event
 
     def finish(self, item):
         """The tensors, once the consumer's stream has waited for their copy."""
@@ -162,7 +168,8 @@ def prefetch_to_mesh(batches: Iterable, mesh, size: int = 2) -> Iterator:
     thread.start()
     try:
         while True:
-            ready.acquire()
+            with profiling.span("input.wait"):
+                ready.acquire()
             item = queue.popleft()
             if item is done:
                 break

@@ -12,6 +12,12 @@ Over a mesh of ranks every rank passes the same volume: each segments an
 equal contiguous chunk of it on its own device (the tail padded with the
 last B-scan), and the chunks are gathered on the host, so every rank
 returns the whole volume's outputs, equal to a one-rank run's.
+
+Under a profiler a call records the spans of :mod:`..common.profiling`:
+``serve.volume`` (a request), ``serve.pad``, ``serve.stage`` (per batch,
+``parallel/input_pipeline.py``), ``serve.launch`` with ``serve.forward``,
+``serve.maps`` and ``serve.minpath`` (per batch, ``ops/inference.py``),
+``serve.drain``, ``serve.fetch`` and, over a mesh, ``serve.gather``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..common import profiling
 from ..models import get_model_class
 from ..ops.inference import make_fused_pipeline, select_optimized_forward
 from ..parallel.input_pipeline import device_prefetch
@@ -97,9 +104,14 @@ class VolumeSegmenter:
                 "segment_volume requires at least one B-scan "
                 "(got an empty volume)"
             )
-        if self.mesh is not None:
-            return self._segment_volume_multiproc(volume, prefetch)
-        return self._segment_local(volume, prefetch)
+        # Padding: the B-scans that all ranks' batches compute beyond the volume's.
+        world = self.mesh.world if self.mesh is not None else 1
+        chunk = -(-n // world)
+        padded = world * -(-chunk // self._rank_batch) * self._rank_batch - n
+        with profiling.span("serve.volume", request=True, bscans=n, padded=padded):
+            if self.mesh is not None:
+                return self._segment_volume_multiproc(volume, prefetch)
+            return self._segment_local(volume, prefetch)
 
     def _segment_volume_multiproc(self, volume: np.ndarray, prefetch: int):
         n = volume.shape[0]
@@ -110,9 +122,12 @@ class VolumeSegmenter:
         lo = min(rank * chunk, n)
         local = volume[lo : lo + chunk]
         if local.shape[0] < chunk:
-            filler = np.repeat(volume[-1:], chunk - local.shape[0], axis=0)
-            local = np.concatenate([local, filler]) if local.size else filler
-        parts = all_gather_host(self._segment_local(local, prefetch), self.mesh)
+            with profiling.span("serve.pad", bscans=chunk - local.shape[0]):
+                filler = np.repeat(volume[-1:], chunk - local.shape[0], axis=0)
+                local = np.concatenate([local, filler]) if local.size else filler
+        labels, rows = self._segment_local(local, prefetch)
+        with profiling.span("serve.gather", bytes=labels.nbytes + (0 if rows is None else rows.nbytes)):
+            parts = all_gather_host((labels, rows), self.mesh)
         labels = np.concatenate([p[0] for p in parts])[:n]
         rows = None if parts[0][1] is None else np.concatenate([p[1] for p in parts])[:n]
         return labels, rows
@@ -122,7 +137,8 @@ class VolumeSegmenter:
         b = self._rank_batch
         pad = (-n) % b
         if pad:
-            volume = np.concatenate([volume, volume[-1:].repeat(pad, 0)])
+            with profiling.span("serve.pad", bscans=pad):
+                volume = np.concatenate([volume, volume[-1:].repeat(pad, 0)])
         model_div = self._model_div
         if volume.shape[1] % model_div or volume.shape[2] % model_div:
             raise ValueError(
@@ -139,6 +155,15 @@ class VolumeSegmenter:
             if rows is not None:
                 rows_out.append(rows)
 
-        labels = torch.cat(labels_out).cpu().numpy()[:n]
-        rows = torch.cat(rows_out).cpu().numpy()[:n] if rows_out else None
+        if profiling.tracing():
+            # Traced only, so that the copy back below starts on an idle
+            # stream: the host's wait for the volume's queued work, which the
+            # blocking .cpu() otherwise waits for itself.
+            with profiling.span("serve.drain"):
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+        fetched = sum(t.nbytes for t in labels_out) + sum(t.nbytes for t in rows_out)
+        with profiling.span("serve.fetch", bytes=fetched):
+            labels = torch.cat(labels_out).cpu().numpy()[:n]
+            rows = torch.cat(rows_out).cpu().numpy()[:n] if rows_out else None
         return labels, rows
