@@ -5,17 +5,20 @@ copied to the device ahead of the consumer.
 - :class:`ShardedHDF5Reader` reads a split's strided sample shard of one
   node (sample i belongs to node ``i % nodes``), trimmed to floor(N /
   nodes) so that every node runs the same number of steps.
-- :func:`device_prefetch` copies host batches from pinned memory to a
-  device on a side stream, ``size`` batches ahead of the consumer; the
-  consumer's stream waits on each copy's event, so neither the host nor
-  the consumer's stream blocks on the copy.
+- :func:`device_prefetch` copies host batches to a device on a side
+  stream, ``size`` batches ahead of the consumer, through a
+  :class:`StagingRing` of pinned slots; the consumer's stream waits on each
+  copy's event, so neither the host nor the consumer's stream blocks on the
+  copy. A caller that streams many inputs keeps one ring and calls its
+  :meth:`StagingRing.prefetch`, so that the slots are pinned once.
 - :func:`prefetch_to_mesh` does the same for a rank of a mesh, with this
   rank's rows of each node batch, on a producer thread, so that host batch
-  assembly overlaps the device's work.
+  assembly overlaps the device's work; it pins each batch on its own.
 
 Under a profiler (:mod:`..common.profiling`) each batch's staging is a
-``serve.stage`` span (``bytes``), and each wait of
-:func:`prefetch_to_mesh`'s consumer for the producer an ``input.wait``.
+``serve.stage`` span (``bytes``; through a ring also ``slot_alloc`` and
+``slot_wait``), and each wait of :func:`prefetch_to_mesh`'s consumer for
+the producer an ``input.wait``.
 """
 
 from __future__ import annotations
@@ -83,8 +86,8 @@ def _tree_map(fn, batch):
 
 class _Uploader:
     """Host batches (an array or a tuple of arrays) to ``device``: on a
-    card, pinned and copied on a side stream, the copy's event kept with
-    the tensors."""
+    card, each pinned on its own and copied on a side stream, the copy's
+    event kept with the tensors."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -115,25 +118,97 @@ class _Uploader:
         return dev
 
 
+class StagingRing(_Uploader):
+    """An uploader whose host side is a ring of preallocated slots of one
+    batch each, pinned on a card (plain tensors elsewhere), kept from batch
+    to batch and from one :meth:`prefetch` to the next.
+
+    Each batch is copied straight from the caller's arrays, whatever their
+    strides, into the next slot, then copied to the device as
+    :class:`_Uploader` copies it. A slot is refilled only once the event of
+    its previous copy has completed; the host waits for it where it has
+    not. The ring holds ``size + 1`` slots for the batches' shapes and
+    dtypes, and is allocated again only when these or ``size`` change.
+    Under a profiler ``serve.stage`` counts ``slot_alloc`` (1 where the
+    stage allocated the ring) and ``slot_wait`` (1 where it found the
+    slot's previous copy still running). One :meth:`prefetch` at a time."""
+
+    def __init__(self, device: torch.device):
+        super().__init__(device)
+        self._key = None
+        self._slots = []  # per slot: (host tensors, numpy views of them)
+        self._events = []  # per slot: its last copy's event, None when done
+        self._next = 0
+
+    def prefetch(self, batches: Iterable, size: int = 2) -> Iterator:
+        """Iterate ``batches`` (numpy arrays or tuples of them) as tensors on
+        the device, the copies started ``size`` batches ahead of the
+        consumer."""
+        it = iter(batches)
+        buf = collections.deque()
+
+        def fill():
+            for batch in it:
+                buf.append(self._stage(batch, size + 1))
+                if len(buf) >= size:
+                    return
+
+        fill()
+        while buf:
+            out = buf.popleft()
+            fill()
+            yield self.finish(out)
+
+    def _stage(self, batch, slots: int):
+        arrays = list(batch) if isinstance(batch, (tuple, list)) else [batch]
+        key = (slots, tuple((a.shape, a.dtype) for a in arrays))
+        alloc = key != self._key
+        k = 0 if alloc else self._next
+        event = None if alloc else self._events[k]
+        busy = event is not None and not event.query()
+        nbytes = sum(a.nbytes for a in arrays)
+        with profiling.span("serve.stage", bytes=nbytes, slot_alloc=int(alloc), slot_wait=int(busy)):
+            if alloc:
+                self._allocate(key, arrays, slots)
+            elif busy:
+                event.synchronize()
+            host, views = self._slots[k]
+            for view, a in zip(views, arrays):
+                np.copyto(view, a)
+            if self.stream is None:
+                # A copy, as on a card: the slot is refilled while the
+                # consumer may still hold the batch.
+                dev, event = [t.to(self.device, copy=True) for t in host], None
+            else:
+                with torch.cuda.stream(self.stream):
+                    dev = [t.to(self.device, non_blocking=True) for t in host]
+                    event = torch.cuda.Event()
+                    event.record(self.stream)
+            self._events[k] = event
+            self._next = (k + 1) % slots
+        return (type(batch)(dev) if isinstance(batch, (tuple, list)) else dev[0]), event
+
+    def _allocate(self, key, arrays, slots: int):
+        for event in self._events:  # no copy may still read a slot let go
+            if event is not None:
+                event.synchronize()
+        pin = self.stream is not None
+        self._slots = []
+        for _ in range(slots):
+            host = [
+                torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype, pin_memory=pin)
+                for a in arrays
+            ]
+            self._slots.append((host, [t.numpy() for t in host]))
+        self._events = [None] * slots
+        self._key = key
+
+
 def device_prefetch(batches: Iterable, size: int = 2, device=None) -> Iterator:
     """Iterate ``batches`` (numpy arrays or tuples of them) as tensors on
     ``device`` (None means CUDA), the copies started ``size`` batches
-    ahead of the consumer."""
-    uploader = _Uploader(resolve_device(device))
-    it = iter(batches)
-    buf = collections.deque()
-
-    def fill():
-        for batch in it:
-            buf.append(uploader.start(batch))
-            if len(buf) >= size:
-                return
-
-    fill()
-    while buf:
-        out = buf.popleft()
-        fill()
-        yield uploader.finish(out)
+    ahead of the consumer, through a ring of its own."""
+    return StagingRing(resolve_device(device)).prefetch(batches, size)
 
 
 def prefetch_to_mesh(batches: Iterable, mesh, size: int = 2) -> Iterator:

@@ -2,11 +2,14 @@
 ``prediction/streaming.py::VolumeSegmenter``.
 
 A volume of B-scans goes through the fused pipeline
-(:func:`..ops.inference.make_fused_pipeline`) in fixed-size batches.
-:func:`..parallel.input_pipeline.device_prefetch` copies each batch from
-pinned host memory on a side stream, ``prefetch`` batches ahead, and the
-results stay on the device until the volume is done, so the host queues
-the next batch while the card works on the current one.
+(:func:`..ops.inference.make_fused_pipeline`) in fixed-size batches. Whole
+batches are views of the caller's volume; only a short last batch is
+built, padded with the volume's last B-scan. The segmenter's
+:class:`..parallel.input_pipeline.StagingRing` copies each batch into a
+pinned slot that it keeps for its lifetime and from there to the device on
+a side stream, ``prefetch`` batches ahead, and the results stay on the
+device until the volume is done, so the host queues the next batch while
+the card works on the current one.
 
 Over a mesh of ranks every rank passes the same volume: each segments an
 equal contiguous chunk of it on its own device (the tail padded with the
@@ -22,6 +25,8 @@ Under a profiler a call records the spans of :mod:`..common.profiling`:
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -29,8 +34,25 @@ from .._device import resolve_device
 from ..common import profiling
 from ..models import get_model_class
 from ..ops.inference import make_fused_pipeline, select_optimized_forward
-from ..parallel.input_pipeline import device_prefetch
+from ..parallel.input_pipeline import StagingRing
 from ..parallel.mesh import all_gather_host
+
+
+def _batches(part: np.ndarray, count: int, b: int, fill: np.ndarray):
+    """The batches of ``b`` B-scans that cover ``count`` rows: views of
+    ``part`` while it fills whole batches, then each batch past that built
+    from the rest of ``part`` and copies of ``fill`` (the volume's last
+    B-scan), under a ``serve.pad`` span of the B-scans it adds."""
+    whole = len(part) // b * b
+    for i in range(0, whole, b):
+        yield part[i : i + b]
+    for i in range(whole, count, b):
+        rest = part[i : i + b]
+        with profiling.span("serve.pad", bscans=b - len(rest)):
+            batch = np.empty((b, *part.shape[1:]), part.dtype)
+            batch[: len(rest)] = rest
+            batch[len(rest) :] = fill
+        yield batch
 
 
 class VolumeSegmenter:
@@ -90,6 +112,10 @@ class VolumeSegmenter:
             return_maps=False,
             device=self.device,
         )
+        # The host slots that every volume's batches are staged through, and
+        # the lock that gives them to one volume at a time.
+        self._staging = StagingRing(self.device)
+        self._staging_lock = threading.Lock()
 
     def segment_volume(self, volume: np.ndarray, prefetch: int = 2):
         """Segment a ``(num_bscans, H, W, C)`` uint8 volume, copying
@@ -111,7 +137,7 @@ class VolumeSegmenter:
         with profiling.span("serve.volume", request=True, bscans=n, padded=padded):
             if self.mesh is not None:
                 return self._segment_volume_multiproc(volume, prefetch)
-            return self._segment_local(volume, prefetch)
+            return self._segment_local(volume, n, volume[-1], prefetch)
 
     def _segment_volume_multiproc(self, volume: np.ndarray, prefetch: int):
         n = volume.shape[0]
@@ -120,40 +146,31 @@ class VolumeSegmenter:
         # the gathered outputs stack in rank order.
         chunk = -(-n // world)
         lo = min(rank * chunk, n)
-        local = volume[lo : lo + chunk]
-        if local.shape[0] < chunk:
-            with profiling.span("serve.pad", bscans=chunk - local.shape[0]):
-                filler = np.repeat(volume[-1:], chunk - local.shape[0], axis=0)
-                local = np.concatenate([local, filler]) if local.size else filler
-        labels, rows = self._segment_local(local, prefetch)
+        labels, rows = self._segment_local(volume[lo : lo + chunk], chunk, volume[-1], prefetch)
         with profiling.span("serve.gather", bytes=labels.nbytes + (0 if rows is None else rows.nbytes)):
             parts = all_gather_host((labels, rows), self.mesh)
         labels = np.concatenate([p[0] for p in parts])[:n]
         rows = None if parts[0][1] is None else np.concatenate([p[1] for p in parts])[:n]
         return labels, rows
 
-    def _segment_local(self, volume: np.ndarray, prefetch: int):
-        n = volume.shape[0]
-        b = self._rank_batch
-        pad = (-n) % b
-        if pad:
-            with profiling.span("serve.pad", bscans=pad):
-                volume = np.concatenate([volume, volume[-1:].repeat(pad, 0)])
+    def _segment_local(self, part: np.ndarray, count: int, fill: np.ndarray, prefetch: int):
+        """The outputs of ``count`` rows: ``part``'s B-scans, then ``fill``."""
         model_div = self._model_div
-        if volume.shape[1] % model_div or volume.shape[2] % model_div:
+        if part.shape[1] % model_div or part.shape[2] % model_div:
             raise ValueError(
-                f"B-scan spatial dims {volume.shape[1]}x{volume.shape[2]} "
+                f"B-scan spatial dims {part.shape[1]}x{part.shape[2]} "
                 f"must be multiples of {model_div} (the model's "
                 f"spatial downsampling factor)"
             )
 
-        batches = (volume[i : i + b] for i in range(0, len(volume), b))
+        batches = _batches(part, count, self._rank_batch, fill)
         labels_out, rows_out = [], []
-        for batch in device_prefetch(batches, size=prefetch, device=self.device):
-            labels, _maps, rows = self._pipeline(batch)
-            labels_out.append(labels)
-            if rows is not None:
-                rows_out.append(rows)
+        with self._staging_lock:
+            for batch in self._staging.prefetch(batches, size=prefetch):
+                labels, _maps, rows = self._pipeline(batch)
+                labels_out.append(labels)
+                if rows is not None:
+                    rows_out.append(rows)
 
         if profiling.tracing():
             # Traced only, so that the copy back below starts on an idle
@@ -164,6 +181,6 @@ class VolumeSegmenter:
                     torch.cuda.current_stream(self.device).synchronize()
         fetched = sum(t.nbytes for t in labels_out) + sum(t.nbytes for t in rows_out)
         with profiling.span("serve.fetch", bytes=fetched):
-            labels = torch.cat(labels_out).cpu().numpy()[:n]
-            rows = torch.cat(rows_out).cpu().numpy()[:n] if rows_out else None
+            labels = torch.cat(labels_out).cpu().numpy()[:count]
+            rows = torch.cat(rows_out).cpu().numpy()[:count] if rows_out else None
         return labels, rows

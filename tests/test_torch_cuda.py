@@ -612,6 +612,62 @@ def test_prefetch_copies_to_the_card(cuda):
         assert np.array_equal(gx.cpu().numpy(), x[2:] * 2) and np.array_equal(gy.cpu().numpy(), y[2:])
 
 
+def test_served_volumes_through_the_staging_ring_match_a_whole_volume_pad(cuda):
+    """Volumes of 49, 61, 97 and 128 B-scans at batch 8 through the
+    segmenter's staging ring (views of the volume, the last batch padded
+    alone, pinned slots kept across volumes) and through a whole-volume pad
+    with each batch pinned on its own: labels and rows identical. After the
+    first volume no stage allocates the ring or waits for a slot."""
+    from oct_image_segmentation_models_torch.common import profiling
+    from oct_image_segmentation_models_torch.common.model_io import LoadedModel
+    from oct_image_segmentation_models_torch.models import get_model_class
+    from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
+
+    from synth import make_layered_sample
+
+    h, w, c, b = 128, 256, 4, 8
+    container = get_model_class("unet")(
+        input_channels=1, num_classes=c, image_height=h, image_width=w,
+        start_neurons=8, pool_layers=4,
+    )
+    config = container.get_config()
+    module = container.build_model(generator=torch.Generator().manual_seed(16), device="cpu")
+    seg = VolumeSegmenter(LoadedModel("unet", module, config), config, batch_size=b, device=cuda)
+    assert seg.kind == "s2d"
+    rng = np.random.default_rng(16)
+    pool = np.stack([make_layered_sample(rng, h, w, c)[0] for _ in range(16)])[..., None]
+    volumes = [pool[rng.integers(0, len(pool), n)] for n in (49, 61, 97, 128)]
+
+    def whole_volume_pad(volume):
+        n = len(volume)
+        padded = np.concatenate([volume, volume[-1:].repeat((-n) % b, 0)])
+        labels, rows = [], []
+        for i in range(0, len(padded), b):
+            batch = torch.from_numpy(np.ascontiguousarray(padded[i : i + b])).pin_memory()
+            out = seg._pipeline(batch.to(cuda, non_blocking=True))
+            labels.append(out[0])
+            rows.append(out[2])
+        return torch.cat(labels).cpu().numpy()[:n], torch.cat(rows).cpu().numpy()[:n]
+
+    want = [whole_volume_pad(v) for v in volumes]
+    profiling.reset_spans()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            got = [seg.segment_volume(v) for v in volumes]
+        stages = [r for r in profiling.spans() if r.name == "serve.stage"]
+    finally:
+        profiling.reset_spans()
+    for (labels, rows), (want_labels, want_rows), v in zip(got, want, volumes):
+        assert labels.shape == (len(v), h, w)
+        np.testing.assert_array_equal(labels, want_labels)
+        np.testing.assert_array_equal(rows, want_rows)
+    first = stages[0].request
+    assert len(stages) == sum(-(-len(v) // b) for v in volumes)
+    assert [r.counts["slot_alloc"] for r in stages if r.request == first] == [1] + [0] * 6
+    later = [r.counts for r in stages if r.request != first]
+    assert all(k["slot_alloc"] == 0 and k["slot_wait"] == 0 for k in later), later
+
+
 def test_create_mesh_puts_a_bare_cuda_on_the_local_card(cuda, tmp_path):
     """A world of one over NCCL: ``create_mesh(device="cuda")`` (as
     ``TrainingParams(device="cuda")`` under ``torchrun`` passes it) is the

@@ -12,6 +12,7 @@ exactly; ``probs_mean`` within the goldens' own 2e-6.
 
 import functools
 import json
+import tracemalloc
 from pathlib import Path
 
 import jax
@@ -195,6 +196,69 @@ def test_streaming_golden():
     assert rows.shape == (10, C - 1, W) and rows.dtype == np.uint16
     assert int(labels.astype(np.int64).sum()) == golden["labels_sum"]
     assert rows.tolist() == golden["rows"]
+
+
+def _padded_pipeline(seg, volume, b):
+    """The segmenter's pipeline on ``volume`` padded with its last B-scan to
+    whole batches of ``b``, each batch a contiguous copy, trimmed back."""
+    n = len(volume)
+    padded = np.concatenate([volume, volume[-1:].repeat((-n) % b, 0)])
+    outs = [seg._pipeline(torch.from_numpy(np.ascontiguousarray(padded[i : i + b])))
+            for i in range(0, len(padded), b)]
+    return (torch.cat([o[0] for o in outs]).numpy()[:n],
+            torch.cat([o[2] for o in outs]).numpy()[:n])
+
+
+@pytest.mark.parametrize(
+    "n, layout",
+    [(1, "contiguous"), (3, "contiguous"), (10, "contiguous"), (8, "contiguous"),
+     (10, "strided"), (6, "transposed")],
+)
+def test_streaming_equals_the_explicitly_padded_volume(n, layout):
+    """Whole batches are views of the volume and only the short last one is
+    built; the outputs are the pipeline's on the padded volume, for one
+    B-scan, less than a batch, a remainder, whole batches and volumes that
+    are not contiguous, and the caller's array is left as it was."""
+    container, module = _port_model()
+    config = container.get_config()
+    seg = VolumeSegmenter(LoadedModel("unet", module, config), config, batch_size=4, device="cpu")
+    volume = _images(n, 11)
+    if layout == "strided":  # every other B-scan of a larger array
+        volume = np.repeat(volume, 2, axis=0)[::2]
+    elif layout == "transposed":  # each B-scan stored column by column
+        volume = np.ascontiguousarray(volume.transpose(0, 2, 1, 3)).transpose(0, 2, 1, 3)
+    assert volume.flags.c_contiguous == (layout == "contiguous")
+    before = volume.copy()
+    labels, rows = seg.segment_volume(volume)
+    want_labels, want_rows = _padded_pipeline(seg, before, 4)
+    np.testing.assert_array_equal(labels, want_labels)
+    np.testing.assert_array_equal(rows, want_rows)
+    np.testing.assert_array_equal(volume, before)
+    assert labels.shape == (n, H, W) and rows.shape == (n, C - 1, W)
+
+
+def test_streaming_copies_no_more_than_one_batch_of_the_volume():
+    """A 49-B-scan volume at batch 8: the host allocates no array larger than
+    one batch (the padded last one), where padding the whole volume would
+    copy 56 B-scans. The pipeline is a stand-in, so that only the host path
+    allocates."""
+    container, module = _port_model()
+    config = container.get_config()
+    seg = VolumeSegmenter(LoadedModel("unet", module, config), config, batch_size=8, device="cpu")
+    seg._pipeline = lambda x: (x[..., 0].clone(), None, x[:, : C - 1, :, 0].to(torch.uint16))
+    volume = np.random.default_rng(4).integers(0, 256, (49, 256, 512, 1), dtype=np.uint8)
+    seg.segment_volume(volume[:9])  # the ring and the interpreter's own caches
+    batch_bytes = volume[:8].nbytes
+    tracemalloc.start()
+    try:
+        base, _ = tracemalloc.get_traced_memory()
+        labels, rows = seg.segment_volume(volume)
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    np.testing.assert_array_equal(labels, volume[..., 0])
+    np.testing.assert_array_equal(rows, volume[:, : C - 1, :, 0])
+    assert peak - base < batch_bytes * 5 // 4, (peak - base, batch_bytes)
 
 
 def test_streaming_rejects_bad_input():

@@ -3,6 +3,7 @@ under one, on the exported trace's clock, with self times, parents and
 request ids, and never inside an exported program."""
 
 import json
+import sys
 import threading
 import time
 
@@ -99,7 +100,10 @@ def test_served_path_spans_under_a_profiler(unet):
     assert volume.parent is None and volume.request is not None
     assert volume.counts == {"bscans": 10, "padded": 2}
     assert [r.counts for r in spans["serve.pad"]] == [{"bscans": 2}]
-    assert [r.counts for r in spans["serve.stage"]] == [{"bytes": BATCH * H * W}] * 3
+    # The ring was allocated by the untraced volume: every slot is reused.
+    assert [r.counts for r in spans["serve.stage"]] == [
+        {"bytes": BATCH * H * W, "slot_alloc": 0, "slot_wait": 0}
+    ] * 3
     assert [r.counts for r in spans["serve.launch"]] == [{"bscans": BATCH}] * 3
     for name in ("serve.pad", "serve.stage", "serve.launch", "serve.drain", "serve.fetch"):
         assert all(r.parent is volume for r in spans[name]), name
@@ -120,6 +124,57 @@ def test_served_path_spans_under_a_profiler(unet):
     with _cpu_profiler():
         seg.segment_volume(_volume(4))
     assert len({r.request for r in profiling.spans()}) == 2
+
+
+def test_staging_ring_is_allocated_once_across_volumes(unet):
+    seg = _segmenter(unet)
+    with _cpu_profiler():
+        for n in (10, 4, 7):
+            seg.segment_volume(_volume(n))
+    stages = _by_name(profiling.spans())["serve.stage"]
+    per_volume = {}
+    for r in stages:
+        per_volume.setdefault(r.request, []).append(r.counts["slot_alloc"])
+    assert list(per_volume.values()) == [[1, 0, 0], [0], [0, 0]]
+    assert profiling.span_totals()["serve.stage"]["counts"] == {
+        "bytes": 6 * BATCH * H * W, "slot_alloc": 1, "slot_wait": 0
+    }
+    # Another batch shape allocates the ring again, once.
+    profiling.reset_spans()
+    other = streaming.VolumeSegmenter(*unet, batch_size=2, device="cpu")
+    with _cpu_profiler():
+        other.segment_volume(_volume(5))
+        other.segment_volume(_volume(3))
+    assert [r.counts["slot_alloc"] for r in profiling.spans() if r.name == "serve.stage"] == [1, 0, 0, 0, 0]
+
+
+def test_one_segmenter_serves_threads_one_volume_at_a_time(unet):
+    seg = _segmenter(unet)
+    sizes = (10, 3, 7, 4, 9, 1, 6, 8, 5)
+    want = {n: _segmenter(unet).segment_volume(_volume(n, seed=n)) for n in set(sizes)}
+    got, errors = {}, []
+
+    def serve(k, n):
+        try:
+            for _ in range(2):
+                got[k] = seg.segment_volume(_volume(n, seed=n))
+        except Exception as exc:  # re-raised below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=serve, args=(k, n)) for k, n in enumerate(sizes)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    for k, n in enumerate(sizes):
+        np.testing.assert_array_equal(got[k][0], want[n][0])
+        np.testing.assert_array_equal(got[k][1], want[n][1])
 
 
 def test_mesh_path_gathers_under_its_span(unet, monkeypatch):
