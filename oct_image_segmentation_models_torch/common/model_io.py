@@ -121,7 +121,11 @@ def state_dict_from_flax(variables_np: dict) -> dict:
     to OIHW; BatchNorm ``scale``/``bias`` and ``batch_stats``
     ``mean``/``var`` map to ``weight``/``bias``/``running_mean``/
     ``running_var``. A folded tree (no BatchNorm entries) gives a
-    state_dict for the module built with ``use_bn=False``.
+    state_dict for the module built with ``use_bn=False``. A TransUNet's
+    leaves map as Flax's own: a Dense ``kernel`` (in, out) to a Linear
+    ``weight`` (out, in), a LayerNorm's or GroupNorm's ``scale`` (no
+    statistics beside it) to ``weight``, and a bare parameter (the
+    position embedding) to itself.
     """
     out = {}
 
@@ -131,22 +135,29 @@ def state_dict_from_flax(variables_np: dict) -> dict:
     def walk(node: dict, stats: dict, path: tuple) -> None:
         prefix = _torch_prefix(path)
         if "kernel" in node:
-            out[f"{prefix}.weight"] = t(node["kernel"]).permute(3, 2, 0, 1).contiguous()
+            kernel = t(node["kernel"])
+            kernel = kernel.permute(3, 2, 0, 1) if kernel.dim() == 4 else kernel.t()
+            out[f"{prefix}.weight"] = kernel.contiguous()
             if "bias" in node:
                 out[f"{prefix}.bias"] = t(node["bias"])
-        elif "scale" in node:
+        elif "scale" in node and "mean" in stats:
             for (collection, leaf), name in _BN_LEAVES.items():
                 out[f"{prefix}.{name}"] = t((node if collection == "params" else stats)[leaf])
+        elif "scale" in node:
+            out[f"{prefix}.weight"], out[f"{prefix}.bias"] = t(node["scale"]), t(node["bias"])
         else:
             for name, child in node.items():
-                walk(child, stats.get(name, {}), path + (name,))
+                if isinstance(child, dict):
+                    walk(child, stats.get(name, {}), path + (name,))
+                else:
+                    out[f"{prefix}.{name}" if prefix else name] = t(child)
 
     walk(variables_np["params"], variables_np.get("batch_stats", {}), ())
     return out
 
 
 def flax_from_state_dict(state_dict: dict) -> dict:
-    """The port's U-Net or DeepLabV3+ state_dict -> Flax ``variables``
+    """The port's U-Net, DeepLabV3+ or TransUNet state_dict -> Flax ``variables``
     (nested dicts of float32 numpy arrays), the inverse of
     :func:`state_dict_from_flax`. A DeepLabV3+ (``resnet50.`` entries) gets
     its ``_ConvBlock_i`` names. A folded state_dict gives ``{"params":
@@ -170,8 +181,10 @@ def flax_from_state_dict(state_dict: dict) -> dict:
             collection, leaf = bn_leaves[leaf]
         else:
             collection = "params"
-            if leaf == "weight":
-                a, leaf = np.ascontiguousarray(a.transpose(2, 3, 1, 0)), "kernel"
+            if leaf == "weight" and a.ndim == 1:  # a LayerNorm's or GroupNorm's
+                leaf = "scale"
+            elif leaf == "weight":
+                a, leaf = np.ascontiguousarray(a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T), "kernel"
         node = variables.setdefault(collection, {})
         for part in path:
             node = node.setdefault(part, {})

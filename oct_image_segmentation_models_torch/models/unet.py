@@ -166,7 +166,8 @@ class ConvBlock(nn.Module):
     """"SAME" Conv -> BatchNorm -> ReLU. ``use_bn=False`` is the BN-folded
     inference variant (see :func:`fold_batchnorm_variables`). ``dilation``
     spreads the kernel's taps; ``bias=False`` drops the conv's bias (the
-    folded variant always has one, to carry the folded shift)."""
+    folded variant always has one, to carry the folded shift); ``eps`` is
+    the BatchNorm's."""
 
     def __init__(
         self,
@@ -176,6 +177,7 @@ class ConvBlock(nn.Module):
         use_bn: bool,
         dilation: int = 1,
         bias: bool = True,
+        eps: float = BN_EPS,
     ):
         super().__init__()
         self.pads = _same_pads([(k - 1) * dilation + 1 for k in kernel])
@@ -189,7 +191,7 @@ class ConvBlock(nn.Module):
             bias=bias or not use_bn,
         )
         self.needs_pad = not symmetric
-        self.bn = BatchNorm(features) if use_bn else None
+        self.bn = BatchNorm(features, eps) if use_bn else None
 
     def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
         """NCHW ``x`` -> the block's output in ``x``'s dtype (a bfloat16

@@ -32,7 +32,7 @@ import torch
 from .._device import compute_dtype as as_dtype
 from .._device import module_dtype, precision, resolve_device
 from ..common import profiling
-from ..models import deeplabv3plus, unet
+from ..models import deeplabv3plus, transunet, unet
 from ..parallel.mesh import all_gather_host
 from . import boundary as boundary_ops
 from . import minpath as minpath_ops
@@ -53,9 +53,11 @@ def select_optimized_forward(
     is an :class:`.s2d_unet.S2DUNet` with output ``s2d_output``: with the
     default ``"labels_s2d"`` pass it to :func:`make_fused_pipeline`'s
     ``labels_apply_fn``; :class:`StagedPipeline` asks for ``"probs"``),
-    ``"folded"`` for a DeepLabV3+, or another U-Net with ``fold_unet`` (BN
-    folded into the convs), and ``"parity"`` without ``optimize`` or for
-    another model (the module as given).
+    ``"folded"`` for a DeepLabV3+, a float32 TransUNet (StdConv weights
+    standardised once, decoder BN folded: :func:`..models.transunet.fold_transunet`)
+    or another U-Net with ``fold_unet`` (BN folded into the convs), and
+    ``"parity"`` without ``optimize`` or for another model (the module as
+    given).
 
     ``compute_dtype="bfloat16"`` runs the s2d forward's or the folded
     DeepLabV3+'s conv stack in bfloat16 (head and softmax in float32). As
@@ -69,6 +71,8 @@ def select_optimized_forward(
             return s2d_fn, "s2d"
         if isinstance(module, deeplabv3plus.DeeplabV3PlusModule):
             return unet.fold_batchnorm(module, dtype), "folded"
+        if isinstance(module, transunet.TransUNetModule) and dtype == torch.float32:
+            return transunet.fold_transunet(module), "folded"
         if fold_unet and isinstance(module, unet.UNetModule) and dtype == torch.float32:
             return unet.fold_batchnorm(module), "folded"
     if dtype != torch.float32:

@@ -12,10 +12,12 @@ capture, written to ``build/idle_account/<workload>.json``), so the
 program's spans (``serve.*``) are on. From the trace's device events
 (kernels, copies, memsets) and the recorded spans, both on the Unix
 clock, it gives each stretch of the window in which the card runs nothing
-to the innermost span open on the serving thread, and prints, per span,
-its share of the idle time and its idle ms per served B-scan, beside the
-spans' own totals and the three per-layer readings the benchmark takes
-from them. It needs the card and imports nothing of JAX.
+to the innermost span open on the serving thread (a model's own spans,
+such as TransUNet's ``transunet.*`` under ``serve.forward``, included),
+and prints, per span, its share of the idle time and its idle ms per
+served B-scan, beside the spans' own totals and the per-layer readings
+the benchmark takes from them (None where the cell has no such span). It
+needs the card and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -166,7 +168,8 @@ def account(cell, seconds: float, trace_dir: Path) -> dict:
                       "self_ms_per_bscan": t["self_ns"] / 1e6 / bscans, "counts": t["counts"]}
                   for n, t in totals.items()},
         "readings": {n: read_metric(n, {}) for n in
-                     ("stage_ms_per_bscan", "fetch_ms_per_bscan", "launch_ms_per_batch")},
+                     ("stage_ms_per_bscan", "fetch_ms_per_bscan", "launch_ms_per_batch",
+                      "encoder_launch_ms_per_batch")},
     }
 
 
