@@ -7,9 +7,12 @@ batches are views of the caller's volume; only a short last batch is
 built, padded with the volume's last B-scan. The segmenter's
 :class:`..parallel.input_pipeline.StagingRing` copies each batch into a
 pinned slot that it keeps for its lifetime and from there to the device on
-a side stream, ``prefetch`` batches ahead, and the results stay on the
-device until the volume is done, so the host queues the next batch while
-the card works on the current one.
+a side stream, ``prefetch`` batches ahead. Its
+:class:`..parallel.input_pipeline.FetchRing` copies each batch's labels and
+rows back into pinned slots on another side stream as soon as the batch is
+queued, and the host copies them out into the returned arrays once each
+copy is done, so the host queues the next batch while the card works on
+the current one, and the volume's end waits only for the last copy.
 
 Over a mesh of ranks every rank passes the same volume: each segments an
 equal contiguous chunk of it on its own device (the tail padded with the
@@ -20,7 +23,8 @@ Under a profiler a call records the spans of :mod:`..common.profiling`:
 ``serve.volume`` (a request), ``serve.pad``, ``serve.stage`` (per batch,
 ``parallel/input_pipeline.py``), ``serve.launch`` with ``serve.forward``,
 ``serve.maps`` and ``serve.minpath`` (per batch, ``ops/inference.py``),
-``serve.drain``, ``serve.fetch`` and, over a mesh, ``serve.gather``.
+``serve.fetch`` (per batch) and ``serve.drain`` (``FetchRing``) and, over a
+mesh, ``serve.gather``.
 """
 
 from __future__ import annotations
@@ -28,13 +32,12 @@ from __future__ import annotations
 import threading
 
 import numpy as np
-import torch
 
 from .._device import resolve_device
 from ..common import profiling
 from ..models import get_model_class
 from ..ops.inference import make_fused_pipeline, select_optimized_forward
-from ..parallel.input_pipeline import StagingRing
+from ..parallel.input_pipeline import FetchRing, StagingRing
 from ..parallel.mesh import all_gather_host
 
 
@@ -112,9 +115,11 @@ class VolumeSegmenter:
             return_maps=False,
             device=self.device,
         )
-        # The host slots that every volume's batches are staged through, and
-        # the lock that gives them to one volume at a time.
+        # The host slots that every volume's batches are staged through and
+        # its outputs fetched back through, and the lock that gives them to
+        # one volume at a time.
         self._staging = StagingRing(self.device)
+        self._fetching = FetchRing(self.device)
         self._staging_lock = threading.Lock()
 
     def segment_volume(self, volume: np.ndarray, prefetch: int = 2):
@@ -164,23 +169,7 @@ class VolumeSegmenter:
             )
 
         batches = _batches(part, count, self._rank_batch, fill)
-        labels_out, rows_out = [], []
         with self._staging_lock:
-            for batch in self._staging.prefetch(batches, size=prefetch):
-                labels, _maps, rows = self._pipeline(batch)
-                labels_out.append(labels)
-                if rows is not None:
-                    rows_out.append(rows)
-
-        if profiling.tracing():
-            # Traced only, so that the copy back below starts on an idle
-            # stream: the host's wait for the volume's queued work, which the
-            # blocking .cpu() otherwise waits for itself.
-            with profiling.span("serve.drain"):
-                if self.device.type == "cuda":
-                    torch.cuda.current_stream(self.device).synchronize()
-        fetched = sum(t.nbytes for t in labels_out) + sum(t.nbytes for t in rows_out)
-        with profiling.span("serve.fetch", bytes=fetched):
-            labels = torch.cat(labels_out).cpu().numpy()[:count]
-            rows = torch.cat(rows_out).cpu().numpy()[:count] if rows_out else None
-        return labels, rows
+            staged = self._staging.prefetch(batches, size=prefetch)
+            outputs = ((labels, rows) for labels, _maps, rows in map(self._pipeline, staged))
+            return self._fetching.fetch(outputs, count, size=prefetch)

@@ -615,9 +615,13 @@ def test_prefetch_copies_to_the_card(cuda):
 def test_served_volumes_through_the_staging_ring_match_a_whole_volume_pad(cuda):
     """Volumes of 49, 61, 97 and 128 B-scans at batch 8 through the
     segmenter's staging ring (views of the volume, the last batch padded
-    alone, pinned slots kept across volumes) and through a whole-volume pad
-    with each batch pinned on its own: labels and rows identical. After the
-    first volume no stage allocates the ring or waits for a slot."""
+    alone, pinned slots kept across volumes, each batch's outputs fetched
+    back through the fetch ring) and through a whole-volume pad with each
+    batch pinned on its own and the outputs joined on the card and copied
+    back at the end: labels and rows identical. After the first volume no
+    stage allocates the ring or waits for a slot, and no fetch allocates
+    its ring. A warm volume under a profiler with CUDA activity copies
+    nothing back to pageable memory."""
     from oct_image_segmentation_models_torch.common import profiling
     from oct_image_segmentation_models_torch.common.model_io import LoadedModel
     from oct_image_segmentation_models_torch.models import get_model_class
@@ -655,8 +659,17 @@ def test_served_volumes_through_the_staging_ring_match_a_whole_volume_pad(cuda):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
             got = [seg.segment_volume(v) for v in volumes]
         stages = [r for r in profiling.spans() if r.name == "serve.stage"]
+        fetches = [r for r in profiling.spans() if r.name == "serve.fetch"]
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            again = seg.segment_volume(volumes[0])
     finally:
         profiling.reset_spans()
+    copies = sorted({e.key for e in prof.key_averages() if e.key.startswith("Memcpy")})
+    assert any("DtoH" in k and "Pinned" in k for k in copies), copies
+    assert not any("DtoH" in k and "Pageable" in k for k in copies), copies
+    np.testing.assert_array_equal(again[0], want[0][0])
+    np.testing.assert_array_equal(again[1], want[0][1])
     for (labels, rows), (want_labels, want_rows), v in zip(got, want, volumes):
         assert labels.shape == (len(v), h, w)
         np.testing.assert_array_equal(labels, want_labels)
@@ -666,6 +679,10 @@ def test_served_volumes_through_the_staging_ring_match_a_whole_volume_pad(cuda):
     assert [r.counts["slot_alloc"] for r in stages if r.request == first] == [1] + [0] * 6
     later = [r.counts for r in stages if r.request != first]
     assert all(k["slot_alloc"] == 0 and k["slot_wait"] == 0 for k in later), later
+    assert len(fetches) == len(stages)
+    assert [r.counts["slot_alloc"] for r in fetches if r.request == first] == [1] + [0] * 6
+    assert all(r.counts["slot_alloc"] == 0 for r in fetches if r.request != first)
+    assert all(r.counts["bytes"] == b * (h * w + (c - 1) * w * 2) for r in fetches)
 
 
 def test_create_mesh_puts_a_bare_cuda_on_the_local_card(cuda, tmp_path):

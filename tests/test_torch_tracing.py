@@ -109,7 +109,13 @@ def test_served_path_spans_under_a_profiler(unet):
         assert all(r.parent is volume for r in spans[name]), name
     for name in CHAIN:
         assert len(spans[name]) == 3 and all(r.parent.name == "serve.launch" for r in spans[name])
-    assert spans["serve.fetch"][0].counts == {"bytes": 12 * H * W + 12 * (C - 1) * W * 2}  # padded batches
+    # One fetch a batch, each of a whole (padded) batch, none waiting: on
+    # the CPU every copy back is done when it is queued.
+    assert [r.counts for r in spans["serve.fetch"]] == [
+        {"bytes": BATCH * H * W + BATCH * (C - 1) * W * 2, "slot_alloc": 0, "slot_wait": 0}
+    ] * 3
+    assert sum(r.counts["bytes"] for r in spans["serve.fetch"]) == 12 * H * W + 12 * (C - 1) * W * 2
+    assert len(spans["serve.drain"]) == 1
     assert {r.request for r in profiling.spans()} == {volume.request}
     assert all(volume.start_ns <= r.start_ns <= r.end_ns <= volume.end_ns for r in profiling.spans())
 
@@ -146,6 +152,51 @@ def test_staging_ring_is_allocated_once_across_volumes(unet):
         other.segment_volume(_volume(5))
         other.segment_volume(_volume(3))
     assert [r.counts["slot_alloc"] for r in profiling.spans() if r.name == "serve.stage"] == [1, 0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("n", [1, BATCH - 1, BATCH, BATCH + 1, 10])
+def test_fetched_outputs_equal_the_batch_at_a_time_pipeline(unet, n):
+    """Volumes of 1, b - 1, b, b + 1 and 10 B-scans, with ``prefetch`` 1 and
+    2 (fetch rings of 2 and 3 slots): the outputs are the pipeline's a batch
+    at a time, and the arrays returned for a volume are the caller's:
+    segmenting the next volume leaves them as they were."""
+    seg = _segmenter(unet)
+    volume = _volume(n, seed=n)
+    padded = np.concatenate([volume, volume[-1:].repeat(-n % BATCH, 0)])
+    outs = [seg._pipeline(torch.from_numpy(padded[i : i + BATCH])) for i in range(0, len(padded), BATCH)]
+    want_labels = torch.cat([o[0] for o in outs]).numpy()[:n]
+    want_rows = torch.cat([o[2] for o in outs]).numpy()[:n]
+    for prefetch in (1, 2):
+        labels, rows = seg.segment_volume(volume, prefetch=prefetch)
+        np.testing.assert_array_equal(labels, want_labels)
+        np.testing.assert_array_equal(rows, want_rows)
+        kept = labels.copy(), rows.copy()
+        seg.segment_volume(_volume(BATCH + 1, seed=n + 1), prefetch=prefetch)
+        np.testing.assert_array_equal(labels, kept[0])
+        np.testing.assert_array_equal(rows, kept[1])
+        assert labels.flags.owndata and rows.flags.owndata
+
+
+def test_fetch_ring_is_allocated_once_across_volumes(unet):
+    """The first volume's first fetch allocates the ring; later volumes of
+    the batch's shape do not; another batch size, or another depth,
+    allocates it again."""
+    seg = _segmenter(unet)
+    other = streaming.VolumeSegmenter(*unet, batch_size=2, device="cpu")
+    with _cpu_profiler():
+        seg.segment_volume(_volume(10))
+        seg.segment_volume(_volume(4))
+        other.segment_volume(_volume(5))
+        other.segment_volume(_volume(3), prefetch=1)
+    per_volume = {}
+    for r in _by_name(profiling.spans())["serve.fetch"]:
+        per_volume.setdefault(r.request, []).append(r.counts["slot_alloc"])
+    assert list(per_volume.values()) == [[1, 0, 0], [0], [1, 0, 0], [1, 0]]
+    assert profiling.span_totals()["serve.fetch"]["counts"] == {
+        "bytes": 4 * BATCH * (H * W + (C - 1) * W * 2) + 5 * 2 * (H * W + (C - 1) * W * 2),
+        "slot_alloc": 3,
+        "slot_wait": 0,
+    }
 
 
 def test_one_segmenter_serves_threads_one_volume_at_a_time(unet):
