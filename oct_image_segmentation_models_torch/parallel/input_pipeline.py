@@ -17,13 +17,14 @@ copied to the device ahead of the consumer.
   Both rings keep their slots and events in a :class:`HostSlots`.
 - :func:`prefetch_to_mesh` does the same for a rank of a mesh, with this
   rank's rows of each node batch, on a producer thread, so that host batch
-  assembly overlaps the device's work; it pins each batch on its own.
+  assembly overlaps the device's work, through one :class:`StagingRing` a
+  call.
 
 Under a profiler (:mod:`..common.profiling`) each batch's staging is a
-``serve.stage`` span (``bytes``; through a ring also ``slot_alloc`` and
-``slot_wait``), each batch's copy out of a :class:`FetchRing` a
-``serve.fetch`` span with the same counts, and each wait of
-:func:`prefetch_to_mesh`'s consumer for the producer an ``input.wait``.
+``serve.stage`` span (``bytes``, ``slot_alloc``, ``slot_wait``), each
+batch's copy out of a :class:`FetchRing` a ``serve.fetch`` span with the
+same counts, and each wait of :func:`prefetch_to_mesh`'s consumer for the
+producer an ``input.wait``.
 """
 
 from __future__ import annotations
@@ -82,46 +83,6 @@ class ShardedHDF5Reader:
             n = total // self.process_count
             images, labels = images[:n], labels[:n]
         return images, labels
-
-
-def _tree_map(fn, batch):
-    if isinstance(batch, (tuple, list)):
-        return type(batch)(fn(x) for x in batch)
-    return fn(batch)
-
-
-class _Uploader:
-    """Host batches (an array or a tuple of arrays) to ``device``: on a
-    card, each pinned on its own and copied on a side stream, the copy's
-    event kept with the tensors."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-
-    def start(self, batch):
-        nbytes = sum(a.nbytes for a in batch) if isinstance(batch, (tuple, list)) else batch.nbytes
-        with profiling.span("serve.stage", bytes=nbytes):
-            host = _tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a)), batch)
-            if self.stream is None:
-                return _tree_map(lambda t: t.to(self.device), host), None
-            host = _tree_map(lambda t: t.pin_memory(), host)
-            with torch.cuda.stream(self.stream):
-                dev = _tree_map(lambda t: t.to(self.device, non_blocking=True), host)
-                event = torch.cuda.Event()
-                event.record(self.stream)
-            return dev, event
-
-    def finish(self, item):
-        """The tensors, once the consumer's stream has waited for their copy."""
-        dev, event = item
-        if event is not None:
-            current = torch.cuda.current_stream(self.device)
-            current.wait_event(event)
-            # The copy's memory belongs to the side stream: tell the caching
-            # allocator that the consumer's stream uses it too.
-            _tree_map(lambda t: t.record_stream(current), dev)
-        return dev
 
 
 def _running(event) -> bool:
@@ -191,24 +152,26 @@ class HostSlots:
         self._key = key
 
 
-class StagingRing(_Uploader):
-    """An uploader whose host side is a ring of preallocated slots of one
-    batch each (:class:`HostSlots`), pinned on a card (plain tensors
-    elsewhere), kept from batch to batch and from one :meth:`prefetch` to
-    the next.
+class StagingRing:
+    """Host batches (numpy arrays or tuples of them) to ``device`` through a
+    ring of preallocated slots of one batch each (:class:`HostSlots`),
+    pinned on a card (plain tensors elsewhere), kept from batch to batch
+    and from one :meth:`prefetch` to the next.
 
     Each batch is copied straight from the caller's arrays, whatever their
-    strides, into the next slot, then copied to the device as
-    :class:`_Uploader` copies it. A slot is refilled only once the event of
-    its previous copy has completed; the host waits for it where it has
+    strides, into the next slot, then to the device on a side stream, and
+    the copy's event is kept with the tensors; :meth:`finish` makes the
+    consumer's stream wait for it. A slot is refilled only once the event
+    of its previous copy has completed; the host waits for it where it has
     not. The ring holds ``size + 1`` slots for the batches' shapes and
     dtypes, and is allocated again only when these or ``size`` change.
     Under a profiler ``serve.stage`` counts ``slot_alloc`` (1 where the
     stage allocated the ring) and ``slot_wait`` (1 where it found the
-    slot's previous copy still running). One :meth:`prefetch` at a time."""
+    slot's previous copy still running). One thread stages at a time."""
 
     def __init__(self, device: torch.device):
-        super().__init__(device)
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self._slots = HostSlots(pin=self.stream is not None)
 
     def prefetch(self, batches: Iterable, size: int = 2) -> Iterator:
@@ -230,6 +193,19 @@ class StagingRing(_Uploader):
             fill()
             yield self.finish(out)
 
+    def finish(self, item):
+        """A staged batch's tensors, once the consumer's stream has waited
+        for their copy."""
+        out, dev, event = item
+        if event is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(event)
+            # The copy's memory belongs to the side stream: tell the caching
+            # allocator that the consumer's stream uses it too.
+            for t in dev:
+                t.record_stream(current)
+        return out
+
     def _stage(self, batch, slots: int):
         arrays = list(batch) if isinstance(batch, (tuple, list)) else [batch]
         alloc, busy = self._slots.claim([(a.shape, _torch_dtype(a.dtype)) for a in arrays], slots)
@@ -248,7 +224,7 @@ class StagingRing(_Uploader):
                     event = torch.cuda.Event()
                     event.record(self.stream)
             self._slots.advance(event)
-        return (type(batch)(dev) if isinstance(batch, (tuple, list)) else dev[0]), event
+        return (type(batch)(dev) if isinstance(batch, (tuple, list)) else dev[0]), dev, event
 
 
 class FetchRing:
@@ -342,8 +318,16 @@ def prefetch_to_mesh(batches: Iterable, mesh, size: int = 2) -> Iterator:
     """Iterate node batches (numpy arrays or tuples of them) as this
     rank's rows (``mesh.local_rows``) on ``mesh.device``, ``size`` batches
     ahead of the consumer, assembled and copied on a background thread.
-    An error of the source or of the copy reaches the consumer."""
-    uploader = _Uploader(mesh.device)
+    An error of the source or of the copy reaches the consumer.
+
+    The rows are staged through one :class:`StagingRing` of ``size + 1``
+    slots, pinned once a call (again only where a batch's shapes change).
+    At most ``size`` batches are staged and not yet let go of by the
+    consumer, the one it holds included, so the slot being filled held a
+    batch that the consumer has let go of, and is refilled once that
+    batch's copy has completed. Only the producer thread touches the
+    ring's slots."""
+    ring = StagingRing(mesh.device)
     queue = collections.deque()
     ready = threading.Semaphore(0)
     space = threading.Semaphore(size)
@@ -358,8 +342,11 @@ def prefetch_to_mesh(batches: Iterable, mesh, size: int = 2) -> Iterator:
                 space.acquire()
                 if cancelled.is_set():
                     return
-                rows = _tree_map(lambda a: a[mesh.local_rows(len(a))], batch)
-                queue.append(uploader.start(rows))
+                if isinstance(batch, (tuple, list)):
+                    rows = type(batch)(a[mesh.local_rows(len(a))] for a in batch)
+                else:
+                    rows = batch[mesh.local_rows(len(batch))]
+                queue.append(ring._stage(rows, size + 1))
                 ready.release()
             queue.append(done)
         except BaseException as exc:  # re-raised on the consumer's side
@@ -377,7 +364,7 @@ def prefetch_to_mesh(batches: Iterable, mesh, size: int = 2) -> Iterator:
                 break
             if isinstance(item, BaseException):
                 raise item
-            yield uploader.finish(item)
+            yield ring.finish(item)
             space.release()
     finally:
         # A consumer that stops early must release the producer, or it would

@@ -63,7 +63,7 @@ from ..common import dataset_loader, h5, model_io, profiling, utils
 from ..common.mlflow_parameters import MLflowParameters
 from ..common.tracking import NullTracker, get_tensorboard_writer, get_tracker
 from ..models import get_model_class
-from ..parallel.input_pipeline import prefetch_to_mesh
+from ..parallel.input_pipeline import device_prefetch, prefetch_to_mesh
 from ..parallel.mesh import Mesh, all_gather_host, any_rank, create_mesh
 from ..parallel.train_step import (
     KERAS_OPTIMIZER_NAMES,
@@ -570,14 +570,6 @@ def _rank_seed(seed: int, rank: int, world: int) -> int:
     return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
 
 
-def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host batch on ``device``, from pinned memory on a card."""
-    tensor = torch.from_numpy(np.ascontiguousarray(array))
-    if device.type == "cuda":
-        return tensor.pin_memory().to(device, non_blocking=True)
-    return tensor.to(device)
-
-
 def _mean(values) -> float:
     """Epoch mean of per-batch 0-d tensors, in float32 as the JAX driver
     takes it (one read-back per epoch)."""
@@ -978,11 +970,11 @@ def train_model(
             yield from stat_cache
             return
         stat_cache.clear()  # partially filled (an interrupted first pass)
-        for start in range(0, n_stat_full, stat_bs):
-            batch = _upload(
-                preprocess_fn(train_images[start : start + stat_bs].astype(np.float32)),
-                device,
-            )
+        host = (
+            preprocess_fn(train_images[start : start + stat_bs].astype(np.float32))
+            for start in range(0, n_stat_full, stat_bs)
+        )
+        for batch in device_prefetch(host, device=device):
             if not stat_cache_ok:
                 cap = int(
                     os.environ.get(

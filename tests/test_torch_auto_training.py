@@ -56,19 +56,12 @@ from oct_image_segmentation_models_torch.training import TrainingParams, train_m
 
 from synth import make_dataset
 from test_torch_train_step import _jax_mask
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 H, W, C = 32, 48, 3
 METRIC_RTOL = 5e-3
 FORWARD_ATOL = 0.05
 S2D_LOG = "Using s2d-transformed training forward"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _record_jax_keys(monkeypatch) -> list:

@@ -68,6 +68,7 @@ from oct_image_segmentation_models_torch.ops.s2d_unet import build_s2d_apply, d2
 from oct_image_segmentation_models_torch.parallel import train_step as tts
 
 from synth import make_layered_sample
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 GOLDEN = Path(__file__).parent / "goldens" / "bf16_pipeline_golden.json"
 H, W, C = 64, 96, 4
@@ -78,15 +79,6 @@ S2D_PROB_ATOL = 1e-3
 DEEPLAB_PROB_ATOL = 5e-2
 MIN_AGREEMENT = 0.99
 BUDGET_AGREEMENT, BUDGET_MAE = 0.995, 0.05
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the suite's workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _np_tree(tree):

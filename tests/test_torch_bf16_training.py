@@ -72,6 +72,7 @@ from test_torch_train_step import (
     _pre_bn_bias,
     _state_dict_of,
 )
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 BF16 = dict(CONFIG, dtype="bfloat16")
 LOSS_RTOL = 1e-3
@@ -82,15 +83,6 @@ FIRST_STAT_REL = 1e-6
 STAT_REL = 5e-3
 OPT_ATOL = 1e-6
 MIN_AGREEMENT = 0.99
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the suite's workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture

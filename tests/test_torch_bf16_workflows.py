@@ -27,15 +27,7 @@ from test_torch_predict_evaluate import (
     _evaluate,
     inputs,  # noqa: F401 (the module's fixture)
 )
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the suite's workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 
 @pytest.fixture

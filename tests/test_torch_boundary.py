@@ -8,6 +8,8 @@ import torch
 from oct_image_segmentation_models_tpu.ops import boundary as jb
 from oct_image_segmentation_models_torch.ops import boundary as tb
 
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
+
 
 def _labels(rng, b=3, h=20, w=17, c=4):
     """Layered labels with random boundaries, plus salt noise."""

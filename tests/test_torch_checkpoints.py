@@ -31,17 +31,9 @@ from oct_image_segmentation_models_torch.models import get_model_class
 from oct_image_segmentation_models_torch.training import TrainingParams, train_model
 
 from synth import make_dataset
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 H, W = 32, 48
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Torch on two threads: the suite's six workers share the cores."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

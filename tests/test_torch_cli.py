@@ -23,7 +23,6 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
-import torch
 
 import fake_mlflow
 from oct_image_segmentation_models_tpu import cli as jax_cli
@@ -33,19 +32,11 @@ from oct_image_segmentation_models_torch import cli
 
 from synth import make_dataset
 from test_torch_predict_evaluate import _assert_hdf5_equal, _assert_trees_equal
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 REPO = Path(__file__).resolve().parents[1]
 H, W, C = 32, 48, 4
 SUBCOMMANDS = ["train", "predict", "evaluate", "export", "export-keras"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Torch on two threads: the suite's six workers share the cores."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

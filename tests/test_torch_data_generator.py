@@ -25,6 +25,7 @@ from oct_image_segmentation_models_torch.common import data_generator as port_ge
 from oct_image_segmentation_models_torch.ops import augment as port_device_aug
 
 from synth import make_layered_sample
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 N, H, W, C = 7, 16, 24, 3
 AUGMENTATIONS = [

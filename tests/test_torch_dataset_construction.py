@@ -21,6 +21,8 @@ from oct_image_segmentation_models_tpu.common.profiling import (
 from oct_image_segmentation_models_torch.common import dataset_construction as dc
 from oct_image_segmentation_models_torch.common.profiling import DeviceStopwatch
 
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
+
 W_IMG, H_IMG, NB = 20, 40, 3
 RUN_ATTRS = {"construct_time", "timestamp"}
 

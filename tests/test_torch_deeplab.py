@@ -48,6 +48,7 @@ from oct_image_segmentation_models_torch.prediction.prediction import run_pipeli
 from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
 
 from synth import make_dataset, make_layered_sample
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 GOLDEN = Path(__file__).parent / "goldens" / "deeplab_pipeline_golden.json"
 
@@ -63,18 +64,6 @@ def _config(h, w):
 
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, dict(tree))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads while this file runs: the ResNet50's small CPU
-    convolutions here run as fast on two as on one per core, and the
-    suite's workers share the cores (a thread per core each thrashed them,
-    ten times slower), then the caller's count again."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

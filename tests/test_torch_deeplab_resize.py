@@ -28,6 +28,8 @@ import torch.nn.functional as F
 from oct_image_segmentation_models_tpu.models import deeplabv3plus as jax_deeplab
 from oct_image_segmentation_models_torch.models import deeplabv3plus as port_deeplab
 
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
+
 F64_ATOL = 1e-12
 JAX_REL = 1e-5
 # NHWC input shape, output (h, w): the resizes of test_torch_deeplab.py.

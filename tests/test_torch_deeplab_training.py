@@ -57,6 +57,7 @@ from oct_image_segmentation_models_torch.parallel import train_step as tts
 from oct_image_segmentation_models_torch.training import TrainingParams, train_model
 
 from synth import make_dataset, make_layered_sample
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 H, W, C, B = 48, 64, 4, 2
 CONFIG = dict(input_channels=3, num_classes=C, image_height=H, image_width=W)
@@ -106,18 +107,6 @@ def _batch(seed=0, n=B):
 
 
 STEP_BATCHES = [_batch(10 + i) for i in range(MAX_STEPS)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads while this file runs: the ResNet50's small CPU
-    convolutions here run as fast on two as on one per core, and the
-    suite's workers share the cores (a thread per core each thrashed them,
-    ten times slower), then the caller's count again."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,7 @@ from oct_image_segmentation_models_torch.parallel.mesh import Mesh
 from synth import make_dataset
 from test_torch_dp_step import run_ranks
 from test_torch_pipeline import C, H, W, _golden, _images, _port_model
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 
 def _mesh(nodes, local, rank):

@@ -90,6 +90,7 @@ from test_torch_train_step import (
     _pre_bn_bias,
     _state_dict_of,
 )
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 REPO = Path(__file__).resolve().parents[1]
 STEPS = 3

@@ -55,6 +55,7 @@ from test_torch_training import (
     _held_out_dice,
     _tree,
 )
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 TRAIN_BODY = """
 from oct_image_segmentation_models_torch.training import TrainingParams, train_model

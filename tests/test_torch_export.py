@@ -45,17 +45,10 @@ from oct_image_segmentation_models_torch.ops.inference import (
     select_optimized_forward,
 )
 
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
+
 C = 4
 GEOMETRY = {"unet": (32, 48, 1), "deeplabv3plus": (32, 32, 3)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Torch on two threads: the suite's six workers share the cores."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,8 @@ from oct_image_segmentation_models_torch.min_path_processing import (
 )
 from oct_image_segmentation_models_torch.ops import minpath as torch_minpath
 
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
+
 ERR_ATOL = 1e-12
 
 

@@ -14,6 +14,8 @@ import torch
 
 from oct_image_segmentation_models_torch.common import h5, model_io
 
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
+
 DTYPES = ["u1", "u2", "i4", "i8", "f4", "f8", ">f4", "bool"]
 SHAPES = [(), (0, 3), (7,), (2, 3, 4, 5)]
 

@@ -13,7 +13,6 @@ from pathlib import Path
 import h5py
 import numpy as np
 import pytest
-import torch
 
 from oct_image_segmentation_models_torch.common import EVALUATION_METRICS, h5, plotting
 from oct_image_segmentation_models_torch.common.dataset import Dataset
@@ -31,6 +30,7 @@ from oct_image_segmentation_models_torch.prediction import (
 from oct_image_segmentation_models_torch.training import TrainingParams, train_model
 
 from synth import make_dataset
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 H, W, C = 64, 96, 3
 BLOCKED = ("h5py", "matplotlib")
@@ -94,17 +94,14 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("h5_workflows")
     dataset = make_dataset(root / "ds.hdf5", n_train=6, n_val=2, n_test=2, h=H, w=W,
                            num_classes=C, seed=21)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)  # both runs sum in one order: their files are bit-equal
-    try:
-        with without(BLOCKED):
-            with pytest.raises(ImportError):
-                import h5py  # noqa: F401
-            assert not plotting.available()
-            bare = _workflows(dataset, root / "bare")
-        full = _workflows(dataset, root / "full")
-    finally:
-        torch.set_num_threads(threads)
+    # Both runs sum on the module's one thread count, in one order: their
+    # files are bit-equal.
+    with without(BLOCKED):
+        with pytest.raises(ImportError):
+            import h5py  # noqa: F401
+        assert not plotting.available()
+        bare = _workflows(dataset, root / "bare")
+    full = _workflows(dataset, root / "full")
     return bare, full
 
 

@@ -16,6 +16,8 @@ from oct_image_segmentation_models_torch import _device
 from oct_image_segmentation_models_torch.ops import _build
 from oct_image_segmentation_models_torch.ops import minpath
 
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
+
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "oct_image_segmentation_models_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "oct_image_segmentation_models_tpu")

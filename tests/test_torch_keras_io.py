@@ -33,6 +33,7 @@ from oct_image_segmentation_models_torch.models import get_model_class
 from oct_image_segmentation_models_torch.training import TrainingParams, train_model
 
 from synth import make_dataset
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 # Two float32 forwards of the same weights, summed in another order.
 FORWARD_ATOL = 1e-5
@@ -41,15 +42,6 @@ CONFIGS = {
                  start_neurons=2, pool_layers=2),
     "deeplabv3plus": dict(input_channels=3, num_classes=3, image_height=32, image_width=32),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Torch on two threads: the suite's six workers share the cores."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

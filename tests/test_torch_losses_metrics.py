@@ -22,6 +22,8 @@ from oct_image_segmentation_models_torch.common import custom_losses, custom_met
 from oct_image_segmentation_models_torch.ops import losses as tl
 from oct_image_segmentation_models_torch.ops import metrics as tm
 
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
+
 B, H, W, C = 2, 12, 16, 4
 RTOL = 1e-5
 GRAD_REL, GRAD_ABS = 1e-4, 1e-7

@@ -14,6 +14,7 @@ from oct_image_segmentation_models_torch.ops.minpath_cuda import delineate_cuda
 
 from oracle_minpath import dijkstra_delineate
 from test_torch_cuda import FAMILIES, _family_map, _ridge_map, _smooth_rows
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 # One shape for every family, so JAX compiles once per (max_grad, mode):
 # 2 x 3 leading dims (batch x boundary), W = 24 columns, H = 20 rows (not

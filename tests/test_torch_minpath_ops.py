@@ -13,19 +13,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from oct_image_segmentation_models_torch.ops import minpath, minpath_cuda
 from oct_image_segmentation_models_torch.ops.boundary import image_maps_to_s2d
 
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
+
 OPS = {
     "image": ("octseg.minpath_delineate.default", minpath.delineate),
     "s2d": ("octseg.minpath_delineate_s2d.default", minpath.delineate_s2d),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Torch on two threads: the suite's six workers share the cores."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 class OpRecorder(TorchDispatchMode):

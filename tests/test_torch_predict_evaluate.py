@@ -51,6 +51,7 @@ from oct_image_segmentation_models_torch.prediction import (
 from oct_image_segmentation_models_torch.prediction.prediction import run_pipeline
 
 from synth import make_dataset, make_layered_sample
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 H, W, C = 64, 96, 4
 FLOAT_ATOL = 1e-9

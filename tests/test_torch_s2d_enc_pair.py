@@ -23,6 +23,8 @@ from oct_image_segmentation_models_torch.ops import s2d_enc_pair as tp
 from oct_image_segmentation_models_torch.ops import s2d_unet as ts
 from oct_image_segmentation_models_torch.ops.s2d_enc_pair_cuda import fused_enc_pair_cuda
 
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
+
 PAIR_ATOL = 1e-4
 FORWARD_ATOL = 1e-5
 

@@ -71,6 +71,7 @@ from test_torch_train_step import (
     _state_dict_of,
     jax_masks,  # noqa: F401 (fixture)
 )
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 TOL = 1e-6
 F64_TOL = 1e-10
@@ -81,14 +82,6 @@ CONFIGS = {
     "deeper": (dict(start_neurons=8, pool_layers=3, conv_layers=2, num_classes=4, h=32, w=32), 3e-3),
 }
 DROPOUT_KEY = jax.random.PRNGKey(42)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _container_config(cfg, dtype=None):

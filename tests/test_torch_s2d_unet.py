@@ -23,6 +23,8 @@ from oct_image_segmentation_models_torch.common.model_io import state_dict_from_
 from oct_image_segmentation_models_torch.models import get_model_class
 from oct_image_segmentation_models_torch.ops import s2d_unet as ts
 
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
+
 PROB_ATOL = 2e-5
 
 

@@ -73,6 +73,7 @@ from test_torch_train_step import (
     _state_dict_of,
 )
 import test_torch_deeplab_training as dl
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 STEPS = 3
 GLOBAL_BATCH = 4
@@ -215,7 +216,6 @@ def spmd(tmp_path_factory):
     """The two ranks' results, JAX's spmd run and the port's one-device
     runs, on the same inputs."""
     workdir = tmp_path_factory.mktemp("spmd_step")
-    torch.set_num_threads(2)
     init = _port_unet().state_dict()
     batches = [_batch(500 + i, GLOBAL_BATCH) for i in range(STEPS)]
     ex, ey = _batch(550, GLOBAL_BATCH)

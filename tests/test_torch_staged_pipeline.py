@@ -25,6 +25,7 @@ from oct_image_segmentation_models_torch.models import get_model_class
 from oct_image_segmentation_models_torch.ops.inference import StagedPipeline
 
 from synth import make_layered_sample
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 H, W, C = 64, 96, 4
 PROB_ATOL = 2e-6  # the goldens' tolerance

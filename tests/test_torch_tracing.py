@@ -1,6 +1,8 @@
 """The port's spans (``common/profiling.py``): off without a profiler, on
 under one, on the exported trace's clock, with self times, parents and
-request ids, and never inside an exported program."""
+request ids, and never inside an exported program; and the served host
+path they cover, at a tiny size: the staging and fetch rings, the padded
+last batch, threads, and ``prefetch_to_mesh``."""
 
 import json
 import sys
@@ -19,6 +21,8 @@ from oct_image_segmentation_models_torch.parallel import input_pipeline
 from oct_image_segmentation_models_torch.parallel.mesh import Mesh
 from oct_image_segmentation_models_torch.prediction import streaming
 
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
+
 H, W, C, BATCH = 16, 32, 4, 4
 CHAIN = ("serve.forward", "serve.maps", "serve.minpath")
 
@@ -29,15 +33,6 @@ def clean_recorder():
     profiling.reset_spans()
     yield
     profiling.reset_spans()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    # Tiny shapes: a thread per core only adds start-up under the suite's workers.
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")
@@ -154,22 +149,39 @@ def test_staging_ring_is_allocated_once_across_volumes(unet):
     assert [r.counts["slot_alloc"] for r in profiling.spans() if r.name == "serve.stage"] == [1, 0, 0, 0, 0]
 
 
-@pytest.mark.parametrize("n", [1, BATCH - 1, BATCH, BATCH + 1, 10])
-def test_fetched_outputs_equal_the_batch_at_a_time_pipeline(unet, n):
-    """Volumes of 1, b - 1, b, b + 1 and 10 B-scans, with ``prefetch`` 1 and
-    2 (fetch rings of 2 and 3 slots): the outputs are the pipeline's a batch
-    at a time, and the arrays returned for a volume are the caller's:
-    segmenting the next volume leaves them as they were."""
+@pytest.mark.parametrize(
+    "n, layout",
+    [(1, "contiguous"), (BATCH - 1, "contiguous"), (BATCH, "contiguous"),
+     (BATCH + 1, "contiguous"), (2 * BATCH, "contiguous"), (10, "contiguous"),
+     (BATCH - 1, "strided"), (BATCH + 1, "strided"), (10, "strided"),
+     (1, "transposed"), (6, "transposed")],
+)
+def test_streaming_equals_the_explicitly_padded_volume(unet, n, layout):
+    """Whole batches are views of the volume and only the short last one is
+    built: for one B-scan, less than a batch, whole batches, a remainder and
+    volumes that are not contiguous, with ``prefetch`` 1 and 2 (rings of 2
+    and 3 slots), the outputs are the pipeline's a batch at a time on the
+    volume padded with its last B-scan, and the caller's volume is left as
+    it was. The arrays returned for a volume are the caller's: segmenting
+    the next volume leaves them as they were."""
     seg = _segmenter(unet)
     volume = _volume(n, seed=n)
-    padded = np.concatenate([volume, volume[-1:].repeat(-n % BATCH, 0)])
+    if layout == "strided":  # every other B-scan of a larger array
+        volume = np.repeat(volume, 2, axis=0)[::2]
+    elif layout == "transposed":  # each B-scan stored column by column
+        volume = np.ascontiguousarray(volume.transpose(0, 2, 1, 3)).transpose(0, 2, 1, 3)
+    assert volume.flags.c_contiguous == (layout == "contiguous")
+    before = volume.copy()
+    padded = np.concatenate([before, before[-1:].repeat(-n % BATCH, 0)])
     outs = [seg._pipeline(torch.from_numpy(padded[i : i + BATCH])) for i in range(0, len(padded), BATCH)]
     want_labels = torch.cat([o[0] for o in outs]).numpy()[:n]
     want_rows = torch.cat([o[2] for o in outs]).numpy()[:n]
     for prefetch in (1, 2):
         labels, rows = seg.segment_volume(volume, prefetch=prefetch)
+        assert labels.shape == (n, H, W) and rows.shape == (n, C - 1, W)
         np.testing.assert_array_equal(labels, want_labels)
         np.testing.assert_array_equal(rows, want_rows)
+        np.testing.assert_array_equal(volume, before)
         kept = labels.copy(), rows.copy()
         seg.segment_volume(_volume(BATCH + 1, seed=n + 1), prefetch=prefetch)
         np.testing.assert_array_equal(labels, kept[0])
@@ -312,6 +324,40 @@ def test_input_wait_covers_a_slow_source():
     waits = spans["input.wait"]
     assert len(waits) == n + 1 and all(r.thread == threading.get_ident() for r in waits)
     assert sum(r.end_ns - r.start_ns for r in waits) >= 0.9 * n * pause * 1e9
-    # The producer thread stages each batch under its own span.
-    assert [r.counts for r in spans["serve.stage"]] == [{"bytes": 2 * 3 * 4 + 2 * 4}] * n
+    # The producer thread stages each batch under its own span, through a
+    # ring that the first batch allocates.
+    stage = {"bytes": 2 * 3 * 4 + 2 * 4, "slot_wait": 0}
+    assert [r.counts for r in spans["serve.stage"]] == (
+        [{**stage, "slot_alloc": 1}] + [{**stage, "slot_alloc": 0}] * (n - 1))
     assert all(r.thread != threading.get_ident() and r.parent is None for r in spans["serve.stage"])
+
+
+def test_prefetch_to_mesh_stages_through_one_ring():
+    """Each rank's rows of every node batch arrive in order, through one
+    ring of ``size + 1`` slots that the first batch allocates and later
+    batches reuse; the batches the consumer kept are not overwritten by the
+    reuse, and an error of the source reaches the consumer after the
+    batches before it."""
+    rng = np.random.default_rng(7)
+    batches = [(rng.random((4, 3, 5), dtype=np.float32), rng.integers(0, 9, (4, 3)).astype(np.int32))
+               for _ in range(5)]
+
+    def failing():
+        yield from batches
+        raise RuntimeError("source failed")
+
+    stage = {"bytes": 2 * 3 * 5 * 4 + 2 * 3 * 4, "slot_wait": 0}
+    for rank in range(2):
+        mesh = Mesh(1, 2, rank, torch.device("cpu"))
+        profiling.reset_spans()
+        got = []
+        with _cpu_profiler(), pytest.raises(RuntimeError, match="source failed"):
+            for batch in input_pipeline.prefetch_to_mesh(failing(), mesh, size=2):
+                got.append(batch)
+        assert len(got) == len(batches)
+        for (gx, gy), (x, y) in zip(got, batches):
+            rows = mesh.local_rows(len(x))
+            np.testing.assert_array_equal(gx.numpy(), x[rows])
+            np.testing.assert_array_equal(gy.numpy(), y[rows])
+        stages = [r.counts for r in profiling.spans() if r.name == "serve.stage"]
+        assert stages == [{**stage, "slot_alloc": 1}] + [{**stage, "slot_alloc": 0}] * 4

@@ -34,6 +34,7 @@ from oct_image_segmentation_models_torch.training import training as port_traini
 from oct_image_segmentation_models_torch.training.training import resolve_train_forward
 
 from synth import make_dataset
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 UNET = dict(input_channels=1, num_classes=3, start_neurons=2, pool_layers=2)
 CASES = {

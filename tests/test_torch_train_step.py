@@ -58,6 +58,7 @@ from oct_image_segmentation_models_torch.ops import metrics as tm
 from oct_image_segmentation_models_torch.parallel import train_step as tts
 
 from synth import make_layered_sample
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 H, W, C, B = 32, 48, 3, 2
 CONFIG = dict(

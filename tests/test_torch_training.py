@@ -49,6 +49,7 @@ from oct_image_segmentation_models_torch.training.training import (
 )
 
 from synth import make_dataset
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 H, W, C = 32, 48, 3
 DICE_BAND = 0.05

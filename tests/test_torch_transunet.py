@@ -35,6 +35,7 @@ from oct_image_segmentation_models_torch.parallel import train_step as tts
 from oct_image_segmentation_models_torch.prediction.streaming import VolumeSegmenter
 
 import plain_transunet as ref
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 H, W, C = 64, 96, 4
 CONFIG = dict(
@@ -74,14 +75,6 @@ def _images(n: int, seed: int) -> np.ndarray:
     labels = (rows[None, None] >= bounds[:, :, None, :]).sum(1)
     grey = np.linspace(40, 220, C)[labels] + r.normal(0, 8.0, labels.shape)
     return np.repeat(np.clip(grey, 0, 255).astype(np.uint8)[..., None], 3, axis=-1)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,8 @@ import torch
 
 from oct_image_segmentation_models_torch.common import tunnel
 
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
+
 
 def test_probe_reports_this_hosts_cards():
     assert tunnel.probe_backend(probe_timeout_s=120.0) == ("up", torch.cuda.device_count())

@@ -33,6 +33,7 @@ from oct_image_segmentation_models_torch.models.unet import (
 )
 
 from synth import make_layered_sample
+from torch_cpu import torch_threads  # noqa: F401 (the module's thread count)
 
 PROB_ATOL = 1e-5
 
